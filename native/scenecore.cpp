@@ -1,18 +1,18 @@
 // scenecore: native scene-build pipeline (OBJ parse, vertex normals,
 // flat skip-link BVH).
 //
-// TPU-native counterpart of the reference's host-side native layer: where
+// Counterpart of the reference's host-side native layer: where
 // the reference accelerates host math with C AVX2 intrinsics compiled to
 // PLAN9 asm (cfiles/*.c, Makefile:15-36) and builds its scene buffers in
 // Go (internal/ocl/scene.go, internal/app/obj/objparser.go,
 // internal/app/shapes/bvh.go), this library does the heavy scene
 // construction natively and hands padded arrays straight to the packer.
 // Algorithms are semantically identical to the Python implementations in
-// pathtracer_tpu/scene/{objfile,bvh}.py (which remain as the portable
+// pathtracer/scene/{objfile,bvh}.py (which remain as the portable
 // fallback and as the parity oracle in tests/test_native.py).
 //
 // Build: make -C native   (g++ -O3 -shared -fPIC)
-// Binding: ctypes (pathtracer_tpu/native.py) — no pybind11 dependency.
+// Binding: ctypes (pathtracer/native.py) — no pybind11 dependency.
 
 #include <algorithm>
 #include <cmath>
@@ -334,8 +334,8 @@ struct Builder {
 
     // Snapped-SAH split: SAH sweep over the 3 sorted-centroid axes with
     // the cut snapped to a multiple of leaf_size (full leaves => the
-    // minimum possible node count, which is what the TPU packet
-    // traversal pays for). Bit-identical to the python emit path
+    // minimum possible node count, which is what the megakernel's
+    // packet walk pays for). Bit-identical to the python emit path
     // (scene/bvh.py _build_tree): stable sorts, same fp operation
     // order, strict-< first-min tie-breaks over axes then cuts.
     double cmin[3] = {1e300, 1e300, 1e300};

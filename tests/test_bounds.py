@@ -1,11 +1,11 @@
 """Bounding box tests (reference tables: shapes/boundingbox_test.go)."""
 import numpy as np
 
-import pathtracer_tpu.geometry as g
-from pathtracer_tpu.scene.bounds import (
+import pathtracer.geometry as g
+from pathtracer.scene.bounds import (
     BoundingBox, bounds_of, parent_space_bounds, transform_bounding_box,
 )
-from pathtracer_tpu.scene.shapes import Cube, Group, Sphere, Triangle
+from pathtracer.scene.shapes import Cube, Group, Sphere, Triangle
 
 
 def test_add_points():

@@ -2,12 +2,12 @@
 the flat skip-link builder."""
 import numpy as np
 
-import pathtracer_tpu.geometry as g
-from pathtracer_tpu.scene.bounds import BoundingBox, bounds_of
-from pathtracer_tpu.scene.bvh import (
+import pathtracer.geometry as g
+from pathtracer.scene.bounds import BoundingBox, bounds_of
+from pathtracer.scene.bvh import (
     build_bvh, divide, partition_children, split_bounds,
 )
-from pathtracer_tpu.scene.shapes import Group, Sphere, Triangle
+from pathtracer.scene.shapes import Group, Sphere, Triangle
 
 
 def test_split_perfect_cube():
@@ -138,9 +138,9 @@ def test_build_bvh_appends_to_pool():
 def test_build_bvh_snapped_minimum_leaves():
     """The snapped-SAH build must produce the minimum possible tree:
     exactly ceil(N/leaf_size) leaves (every leaf full except at most the
-    remainder) and 2*leaves - 1 nodes. This is the property the TPU
-    packet traversal pays for (one while-iteration per visited node,
-    fixed-cost leaf unroll)."""
+    remainder) and 2*leaves - 1 nodes. This is the property the
+    megakernel's packet walk pays for (one while-iteration per visited
+    node, fixed-cost leaf unroll)."""
     for n, leaf in ((100, 8), (64, 8), (37, 4), (257, 16)):
         tris = _random_tris(n, seed=n)
         bvh, root, end = build_bvh(tris, leaf_size=leaf)
@@ -156,7 +156,7 @@ def test_octant_node_orders_equivalent():
     leaves, and traversal must find identical nearest hits."""
     import numpy as np
 
-    from pathtracer_tpu.scene.bvh import (build_bvh_arrays,
+    from pathtracer.scene.bvh import (build_bvh_arrays,
                                           octant_node_orders)
 
     rng = np.random.default_rng(3)
@@ -212,8 +212,8 @@ def test_octant_node_orders_equivalent():
 def test_pt_bvh_leaf_env_override(monkeypatch):
     """PT_BVH_LEAF overrides the packed leaf size (hardware leaf-size
     A/Bs drive bench.py/CLI without code edits)."""
-    from pathtracer_tpu.config import RenderConfig
-    from pathtracer_tpu.scenes import get_scene
+    from pathtracer.config import RenderConfig
+    from pathtracer.scenes import get_scene
 
     cfg = RenderConfig(width=16, height=12, samples=1, samples_per_pass=1)
     sc = get_scene("teapot", cfg)
@@ -222,4 +222,4 @@ def test_pt_bvh_leaf_env_override(monkeypatch):
     assert meta.leaf_size == 64
     monkeypatch.delenv("PT_BVH_LEAF")
     _, meta2 = sc.pack()
-    assert meta2.leaf_size == 32  # small-mesh default
+    assert meta2.leaf_size == 8  # default

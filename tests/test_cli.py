@@ -12,7 +12,7 @@ def _run(*args, env=None):
     e = dict(os.environ, JAX_PLATFORMS="cpu")
     e.update(env or {})
     return subprocess.run(
-        [sys.executable, "-m", "pathtracer_tpu", *args],
+        [sys.executable, "-m", "pathtracer", *args],
         capture_output=True, text=True, cwd=REPO, env=e, timeout=120,
     )
 
@@ -32,7 +32,7 @@ def test_unknown_scene_errors():
 
 
 def test_parser_flags():
-    from pathtracer_tpu.cli import build_parser
+    from pathtracer.cli import build_parser
 
     p = build_parser()
     # reference flag set (cmd/pt/main.go:48-56)
@@ -50,7 +50,7 @@ def test_env_overrides(monkeypatch):
     monkeypatch.setenv("PT_SCENE", "gopher")
     import importlib
 
-    from pathtracer_tpu import cli
+    from pathtracer import cli
 
     importlib.reload(cli)
     a = cli.build_parser().parse_args([])

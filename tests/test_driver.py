@@ -5,17 +5,17 @@ nothing can resume a render). These tests pin the rebuild's contract:
 - a render interrupted after N chunks resumes BIT-IDENTICALLY (the RNG is
   counter-based over global chunk indices, and the host f64 accumulation
   order is per-chunk in both runs)
-- an injected device failure (PT_FAULT_INJECT) is detected, waited out,
-  and re-rendered from the last host flush with an identical result
+- an injected segment failure (PT_FAULT_INJECT) is detected and
+  re-rendered from the last host flush with an identical result
 - a failure with retries exhausted propagates
 """
 import numpy as np
 import pytest
 
-from pathtracer_tpu.config import RenderConfig
-from pathtracer_tpu.driver import render_driver
-from pathtracer_tpu.scene.pack import pack_scene
-from pathtracer_tpu.scenes import get_scene
+from pathtracer.config import RenderConfig
+from pathtracer.driver import render_driver
+from pathtracer.scene.pack import pack_scene
+from pathtracer.scenes import get_scene
 
 
 def _setup():
@@ -108,10 +108,10 @@ def test_checkpoint_config_mismatch_rejected(tmp_path, small_segments):
 
 
 def test_checkpoint_layout_mismatch_rejected(tmp_path):
-    """Two pixel layouts can have the SAME slot count (block vs linear
-    tiles at zero padding), so resuming a checkpoint across layouts would
-    silently pixel-permute the image — the layout tag must reject it."""
-    from pathtracer_tpu.driver import _checkpoint_load, _checkpoint_save
+    """Two pixel layouts can have the SAME slot count, so resuming a
+    checkpoint across layouts would silently pixel-permute the image —
+    the layout tag must reject it."""
+    from pathtracer.driver import _checkpoint_load, _checkpoint_save
 
     cfg = RenderConfig(width=8, height=6, samples=4, samples_per_pass=2)
     ck = str(tmp_path / "ck.npz")
@@ -123,17 +123,43 @@ def test_checkpoint_layout_mismatch_rejected(tmp_path):
     assert n == 1
 
 
+class _FakeGpu:
+    platform = "gpu"
+    device_kind = "test double"
+
+
 def test_forced_pallas_on_unsupported_scene_raises(monkeypatch):
-    """--backend pallas on a scene with an UNSTAGEABLE file-backed
-    texture must fail loudly, not silently render untextured. Round 5:
-    over-cap file images normally mip-stage (pack._mip2) and DO ride
-    the megakernel, so the unstageable case is pinned with
-    PT_TEX_MIP=0 (the round-4 skip-too-big behavior)."""
-    monkeypatch.setenv("PT_TEX_MIP", "0")
+    """--backend pallas on a scene with a file-backed texture (which only
+    the wavefront path renders) must fail loudly, not silently render
+    untextured. The platform check passes with a stand-in GPU device; the
+    scene check raises before any device work."""
+    import jax
+
     cfg = RenderConfig(width=16, height=12, samples=2, samples_per_pass=2,
-                      backend="pallas")
+                       backend="pallas")
     sc = get_scene("textures", cfg)
     sc.textures[0] = np.asarray(sc.textures[0])  # as a loaded PNG would be
     arrays, meta = sc.pack()
-    with pytest.raises(ValueError, match="not supported by the megakernel"):
+    monkeypatch.setattr(jax, "devices", lambda *a: [_FakeGpu()])
+    with pytest.raises(ValueError, match="file-backed textures"):
         render_driver(arrays, meta, sc.camera, cfg)
+
+
+def test_backend_pallas_off_gpu_raises():
+    """The megakernel is compiled for the GPU only: --backend pallas on
+    the CPU is an error, never a silent interpret-mode render."""
+    cfg, sc, arrays, meta = _setup()
+    with pytest.raises(ValueError, match="needs a GPU"):
+        render_driver(arrays, meta, sc.camera, cfg.replace(backend="pallas"))
+
+
+def test_auto_backend_is_wavefront_off_gpu(monkeypatch):
+    """`auto` picks the megakernel only on a GPU; here the render runs
+    on the wavefront path."""
+    monkeypatch.setenv("PT_SEG_SPP", "8")
+    cfg = RenderConfig(width=8, height=6, samples=2, samples_per_pass=2)
+    sc = get_scene("reference", cfg)
+    arrays, meta = sc.pack()
+    img, stats = render_driver(arrays, meta, sc.camera, cfg)
+    assert stats.backend == "wavefront"
+    assert img.shape == (6, 8, 3) and np.isfinite(img).all()

@@ -1,19 +1,21 @@
 """Differentiable-render tests: pathwise gradients vs finite differences,
 and the sharded training step."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pathtracer_tpu.config import RenderConfig
-from pathtracer_tpu.diff import (
+from pathtracer.config import RenderConfig
+from pathtracer.diff import (
     apply_params, extract_params, image_loss, make_sharded_train_step,
     render_image_diff, train_step,
 )
-from pathtracer_tpu.render.vec3 import Vec3
-from pathtracer_tpu.parallel import make_mesh
-from pathtracer_tpu.scene.pack import pack_scene
-from pathtracer_tpu.scenes import get_scene
+from pathtracer.render.vec3 import Vec3
+from pathtracer.parallel import make_mesh
+from pathtracer.scene.pack import pack_scene
+from pathtracer.scenes import get_scene
 
 
 @pytest.fixture(scope="module")
@@ -141,11 +143,11 @@ def test_sharded_train_step_optax(setup):
 
 
 def test_train_state_checkpoint_roundtrip(setup, tmp_path):
-    """orbax train-state save/restore: params + adam opt_state round-trip
+    """Train-state save/restore: params + adam opt_state round-trip
     bit-exactly and training resumes from the restored state."""
     import optax
 
-    from pathtracer_tpu.diff.checkpoint import (
+    from pathtracer.diff.checkpoint import (
         restore_train_state, save_train_state,
     )
 
@@ -173,3 +175,52 @@ def test_train_state_checkpoint_roundtrip(setup, tmp_path):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     for a, b in zip(jax.tree.leaves(opt_state), jax.tree.leaves(o2)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_npz_train_checkpoint_roundtrip(tmp_path):
+    """The .npz train-state checkpoint: an adam state tree round-trips
+    bit-exactly (dtypes included), latest-step restore, and only the
+    newest max_to_keep steps stay on disk."""
+    import optax
+
+    from pathtracer.diff.checkpoint import (
+        restore_train_state, save_train_state,
+    )
+
+    params = {"a": jnp.arange(6.0).reshape(2, 3),
+              "b": jnp.asarray([1, 2], jnp.int32)}
+    opt = optax.adam(0.1)
+    state = opt.init(params)
+    ck = str(tmp_path / "ck")
+    for step in (1, 2, 3, 4):
+        p = jax.tree.map(lambda x: x * step, params)
+        save_train_state(ck, step, p, state, max_to_keep=2)
+    assert sorted(os.listdir(ck)) == ["step_00000003.npz",
+                                      "step_00000004.npz"]
+    step, p2, s2 = restore_train_state(ck, params, opt.init(params))
+    assert step == 4
+    for x, y in zip(jax.tree.leaves(p2),
+                    jax.tree.leaves(jax.tree.map(lambda x: x * 4, params))):
+        assert np.asarray(x).dtype == np.asarray(y).dtype
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    for x, y in zip(jax.tree.leaves(s2), jax.tree.leaves(state)):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    step3, p3, _ = restore_train_state(ck, params, step=3)
+    assert step3 == 3
+    np.testing.assert_array_equal(np.asarray(p3["a"]),
+                                  np.asarray(params["a"]) * 3)
+
+
+def test_npz_train_checkpoint_rejects_mismatch(tmp_path):
+    from pathtracer.diff.checkpoint import (
+        restore_train_state, save_train_state,
+    )
+
+    ck = str(tmp_path / "ck")
+    with pytest.raises(FileNotFoundError):
+        restore_train_state(ck, {"a": jnp.zeros(2)})
+    save_train_state(ck, 1, {"a": jnp.zeros(2)})
+    with pytest.raises(ValueError, match="shape"):
+        restore_train_state(ck, {"a": jnp.zeros(3)})
+    with pytest.raises(ValueError, match="leaves"):
+        restore_train_state(ck, {"a": jnp.zeros(2), "b": jnp.zeros(2)})

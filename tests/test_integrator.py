@@ -4,10 +4,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from pathtracer_tpu.config import RenderConfig
-from pathtracer_tpu.render.integrator import render
-from pathtracer_tpu.scene.pack import pack_scene
-from pathtracer_tpu.scenes import get_scene, list_scenes
+from pathtracer.config import RenderConfig
+from pathtracer.render.integrator import render
+from pathtracer.scene.pack import pack_scene
+from pathtracer.scenes import get_scene, list_scenes
 
 
 @pytest.fixture(scope="module")
@@ -64,7 +64,7 @@ def test_render_reference_tiny(tiny_cfg):
 
 
 def test_render_f32_matches_f64(tiny_cfg):
-    """f32 TPU path vs f64 golden on identical RNG: estimator parity."""
+    """f32 device path vs f64 golden on identical RNG: estimator parity."""
     sc = get_scene("reference", tiny_cfg)
     a32, meta = pack_scene(sc.objects, dtype=jnp.float32)
     a64, _ = pack_scene(sc.objects, dtype=jnp.float64)

@@ -5,12 +5,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import pathtracer_tpu.geometry as g
-from pathtracer_tpu.scene.material import Material
-from pathtracer_tpu.scene.pack import pack_scene
-from pathtracer_tpu.scene.shapes import Cube, Cylinder, Group, Plane, Sphere, Triangle
-from pathtracer_tpu.render.intersect import intersect_scene
-from pathtracer_tpu.render.vec3 import Vec3
+import pathtracer.geometry as g
+from pathtracer.scene.material import Material
+from pathtracer.scene.pack import pack_scene
+from pathtracer.scene.shapes import Cube, Cylinder, Group, Plane, Sphere, Triangle
+from pathtracer.render.intersect import intersect_scene
+from pathtracer.render.vec3 import Vec3
 
 EPS = 1e-4
 TMAX = 1024.0

@@ -2,8 +2,8 @@
 (internal/app/geom/matrix_test.go)."""
 import numpy as np
 
-import pathtracer_tpu.geometry as g
-from pathtracer_tpu.geometry.matrix import from_flat
+import pathtracer.geometry as g
+from pathtracer.geometry.matrix import from_flat
 
 
 def test_multiply():

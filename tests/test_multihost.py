@@ -5,7 +5,7 @@ communication backend": OpenCL queue traffic only); this is the rebuild's
 multi-host story under test. Two subprocesses each own 4 virtual CPU
 devices, rendezvous through jax.distributed, and render the reference
 scene over ONE global (4, 2) pixels x spp mesh via render_sharded — the
-same code path a TPU pod slice runs. Every process must gather the
+same code path a multi-host GPU cluster runs. Every process must gather the
 identical full frame, and that frame must be BIT-IDENTICAL to a
 single-process render on a local 8-device mesh with the same mesh shape
 and seed (the RNG streams are keyed by logical mesh coordinates, not by
@@ -19,11 +19,11 @@ import sys
 
 import numpy as np
 
-from pathtracer_tpu.config import RenderConfig
-from pathtracer_tpu.parallel import make_mesh
-from pathtracer_tpu.parallel.render_dist import render_sharded
-from pathtracer_tpu.scene.pack import pack_scene
-from pathtracer_tpu.scenes import get_scene
+from pathtracer.config import RenderConfig
+from pathtracer.parallel import make_mesh
+from pathtracer.parallel.render_dist import render_sharded
+from pathtracer.scene.pack import pack_scene
+from pathtracer.scenes import get_scene
 
 
 def _free_port() -> int:

@@ -8,10 +8,10 @@ emission order, same slot padding.
 import numpy as np
 import pytest
 
-from pathtracer_tpu import native
-from pathtracer_tpu.assets import goblet_obj, uv_sphere_obj
-from pathtracer_tpu.scene.bvh import build_bvh_arrays, empty_bvh
-from pathtracer_tpu.scene.objfile import compute_vertex_normals, parse_obj
+from pathtracer import native
+from pathtracer.assets import goblet_obj, uv_sphere_obj
+from pathtracer.scene.bvh import build_bvh_arrays, empty_bvh
+from pathtracer.scene.objfile import compute_vertex_normals, parse_obj
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native scenecore not built"
@@ -50,8 +50,8 @@ def test_parse_obj_matches_python(maker, normals):
 
 
 def test_parse_real_gopher_if_present():
-    from pathtracer_tpu.assets import find_asset
-    from pathtracer_tpu.scene.objfile import parse_mtl
+    from pathtracer.assets import find_asset
+    from pathtracer.scene.objfile import parse_mtl
 
     path = find_asset("gopher.obj")
     if path is None:

@@ -2,9 +2,9 @@
 explicit-light-sampling path (tracer.cl:786-829, shipped disabled)."""
 import numpy as np
 
-from pathtracer_tpu.config import RenderConfig
-from pathtracer_tpu.render.integrator import render
-from pathtracer_tpu.scenes import get_scene
+from pathtracer.config import RenderConfig
+from pathtracer.render.integrator import render
+from pathtracer.scenes import get_scene
 
 
 def test_nee_runs_and_brightens_diffuse():
@@ -37,20 +37,17 @@ def _mk_render(cfg, sc, arrays, meta, spp):
     """Megakernel interpret-mode image at spp samples -> [H, W, 3]."""
     import jax.numpy as jnp
 
-    from pathtracer_tpu.render import pallas_kernel as pk
+    from pathtracer.render import pallas_kernel as pk
 
-    S, L = (8, 128)
-    xs, ys, pid = pk.tile_pixel_layout(cfg.width, cfg.height, S, L)
-    cam = jnp.asarray(pk.build_camera_vec(sc.camera))
-    obj, nodes, tris = pk.scene_tables_jnp(arrays, meta)
+    W, H = cfg.width, cfg.height
+    obj, nodes, tris = pk.scene_tables(arrays, meta)
     r, g, b = pk.trace_tiles(
-        jnp.asarray([3, 0], jnp.int32), cam, obj, nodes, tris,
-        jnp.asarray(xs), jnp.asarray(ys), meta=meta, cfg=cfg, spp=spp,
-        total_samples=spp, tile=(S, L), interpret=True)
-    flat = np.stack([np.asarray(r).ravel(), np.asarray(g).ravel(),
-                     np.asarray(b).ravel()], axis=-1)
-    img = pk.untile_image(flat, pid, cfg.width, cfg.height)
-    return img.reshape(cfg.height, cfg.width, 3) / float(spp)
+        jnp.asarray([3, 0], jnp.int32),
+        jnp.asarray(pk.build_camera_vec(sc.camera)), obj, nodes, tris,
+        jnp.asarray(pk.pixel_slots(W, H, pk.DEFAULT_BLOCK)), meta=meta,
+        cfg=cfg, spp=spp, total_samples=spp, interpret=True)
+    img = np.stack([np.asarray(c)[:W * H] for c in (r, g, b)], axis=-1)
+    return img.reshape(H, W, 3) / float(spp)
 
 
 def test_megakernel_nee_matches_wavefront_statistically():
@@ -89,7 +86,7 @@ def test_megakernel_nee_multi_light():
 
 
 def test_megakernel_nee_mesh_scene():
-    """NEE shadow rays walk the packet BVH in-kernel (GROUP objects in
+    """NEE shadow rays walk the BVH in-kernel (GROUP objects in
     the shadow intersect unroll): the teapot scene runs, stays finite,
     and the mesh still shadows the floor (non-degenerate image)."""
     cfg = RenderConfig(width=16, height=12, samples=4, samples_per_pass=4)

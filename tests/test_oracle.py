@@ -13,8 +13,8 @@ intersection, f64, numpy). Two kinds of checks:
 import numpy as np
 import pytest
 
-from pathtracer_tpu.config import RenderConfig
-from pathtracer_tpu.scenes import get_scene
+from pathtracer.config import RenderConfig
+from pathtracer.scenes import get_scene
 
 from _oracle import OracleScene, _closest_hit, oracle_render
 
@@ -41,8 +41,8 @@ def _x64():
 def test_oracle_closest_hit_matches_production():
     """Deterministic: same probe rays -> identical winning object and
     intersection distance (f64, rounding-level tolerance)."""
-    from pathtracer_tpu.render.intersect import intersect_scene
-    from pathtracer_tpu.render.vec3 import Vec3
+    from pathtracer.render.intersect import intersect_scene
+    from pathtracer.render.vec3 import Vec3
     import jax.numpy as jnp
 
     cfg, sc, arrays, meta = _pack("default")
@@ -83,11 +83,11 @@ def test_oracle_closest_hit_two_groups():
     group's triangles must be intersected in its OWN local space (the
     oracle once tested the whole merged pool under every group's
     inverse, which double-tests triangles in the wrong space)."""
-    from pathtracer_tpu.geometry.transforms import scale, translate
-    from pathtracer_tpu.render.intersect import intersect_scene
-    from pathtracer_tpu.render.vec3 import Vec3
-    from pathtracer_tpu.scene.pack import pack_scene
-    from pathtracer_tpu.scene.shapes import Group, Triangle
+    from pathtracer.geometry.transforms import scale, translate
+    from pathtracer.render.intersect import intersect_scene
+    from pathtracer.render.vec3 import Vec3
+    from pathtracer.scene.pack import pack_scene
+    from pathtracer.scene.shapes import Group, Triangle
     import jax.numpy as jnp
 
     def quad(y):
@@ -136,7 +136,7 @@ def test_oracle_image_convergence(scene):
     high spp, per-pixel agreement within MC noise. `textures` covers the
     whole texture pipeline (UV maps, bilinear REPEAT pool sampling,
     normal maps) against the oracle's own f64 re-derivation."""
-    from pathtracer_tpu.render.integrator import render
+    from pathtracer.render.integrator import render
 
     spp = 1536
     cfg, sc, arrays, meta = _pack(scene, samples=spp)

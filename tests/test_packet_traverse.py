@@ -1,18 +1,14 @@
-"""Direct interpret-mode validation of the packet BVH walk.
+"""Direct interpret-mode validation of the megakernel's BVH walk.
 
-`_packet_traverse` (render/pallas_kernel.py) is the one routine shared by
-the megakernel, the intersect-only kernel, and the differentiable kernel,
-and it contains the round-2 dual-basis triangle test + sub-packet leaf
-gating. The render-level parity tests are TPU-gated (on-core PRNG), but
-the traversal itself is PRNG-free, so this file drives it directly in an
-interpret-mode pallas_call on the CPU and checks every ray against a
-brute-force numpy Möller–Trumbore oracle (reference equations,
-/root/reference/internal/ocl/tracer.cl:640-674).
-
-Covers both lane layouts: (8, 128) -> single chunk (nc=1) and (8, 512)
--> four 128-lane sub-packets (nc=4), and the uniform-color broadcast
-elision (teapot packs to a single-material pool).
+`_packet_traverse` (one node pointer per block) in
+render/pallas_kernel.py finds each ray's closest triangle with the
+dual-basis test; `_tri_payload` then fetches the winning slot's smooth
+normal and color. The walk is PRNG-free, so this file drives it directly in an interpret-mode pallas_call (the kernel's
+own Triton route) on the CPU and checks every ray against a brute-force
+numpy Möller–Trumbore oracle (reference equations,
+internal/ocl/tracer.cl:640-674).
 """
+import dataclasses
 import functools
 
 import jax
@@ -20,11 +16,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-from pathtracer_tpu.config import RenderConfig
-from pathtracer_tpu.render import pallas_kernel as pk
-from pathtracer_tpu.scenes import get_scene
+from pathtracer.config import RenderConfig
+from pathtracer.render import pallas_kernel as pk
+from pathtracer.scenes import get_scene
 
 
 @functools.lru_cache(maxsize=1)
@@ -35,35 +31,38 @@ def _teapot():
     return cfg, arrays, meta
 
 
-def _traverse_interpret(meta, cfg, nodes, tris, rays, tile,
-                        uniform_color=None, return_slot=False):
-    """One interpret-mode pallas_call around _packet_traverse."""
-    S, L = tile
-    leaf_rows = meta.leaf_size // pk._TRI_SLOTS_PER_ROW
-    # walk copy 0 (original DFS order) of the single group's BVH
-    (_, root, end), = meta.group_bvh
-    n_out = 8 if return_slot else 7
+def _traverse_interpret(meta, cfg, tables, rays, block=128):
+    """One interpret-mode pallas_call around the BVH walk + payload
+    fetch. Returns (t, slot, nx, ny, nz, cr, cg, cb) per ray."""
+    (j, root, end), = meta.group_bvh
+    n = rays[0].shape[0]
 
     def kernel(node_ref, tri_ref, ox, oy, oz, dx, dy, dz, *outs):
-        bt0 = jnp.full((S, L), pk._BIG, jnp.float32)
-        act = jnp.ones((S, L), jnp.bool_)
-        res = pk._packet_traverse(
-            node_ref, tri_ref, leaf_rows, cfg.epsilon, cfg.t_max,
-            root, end, ox[...], oy[...], oz[...],
-            dx[...], dy[...], dz[...], act, bt0,
-            uniform_color=uniform_color, return_slot=return_slot)
-        for ref, val in zip(outs, res):
+        o = (ox[...], oy[...], oz[...])
+        d = (dx[...], dy[...], dz[...])
+        bt0 = jnp.full(o[0].shape, pk._BIG, jnp.float32)
+        act = jnp.ones(o[0].shape, jnp.bool_)
+        t, slot, u, v = pk._packet_traverse(
+            node_ref, tri_ref, meta, root, end, cfg.epsilon, cfg.t_max,
+            *o, *d, act, bt0)
+        nrm, col = pk._tri_payload(tri_ref, meta, slot, u, v)
+        for ref, val in zip(outs, (t, slot) + nrm + col):
             ref[...] = val
 
-    f32 = jax.ShapeDtypeStruct((S, L), jnp.float32)
+    whole = lambda a: pl.BlockSpec(a.shape, lambda i: (0,))
+    ray = pl.BlockSpec((block,), lambda i: (i,))
+    f32 = jax.ShapeDtypeStruct((n,), jnp.float32)
+    i32 = jax.ShapeDtypeStruct((n,), jnp.int32)
+    _, nodes, tris = tables
     outs = pl.pallas_call(
         kernel,
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 2
-        + [pl.BlockSpec(memory_space=pltpu.VMEM)] * 6,
-        out_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * n_out,
-        out_shape=[f32] * n_out,
+        grid=(n // block,),
+        in_specs=[whole(nodes), whole(tris)] + [ray] * 6,
+        out_specs=[ray] * 8,
+        out_shape=[f32, i32] + [f32] * 6,
+        compiler_params=pltriton.CompilerParams(num_warps=4, num_stages=1),
         interpret=True,
-    )(jnp.asarray(nodes), jnp.asarray(tris), *rays)
+    )(nodes, tris, *rays)
     return [np.asarray(o) for o in outs]
 
 
@@ -107,59 +106,51 @@ def _rays_toward_mesh(arrays, n, seed=0):
     return o.astype(np.float32), d.astype(np.float32)
 
 
-@pytest.mark.parametrize("tile", [(8, 128), (8, 512)])
-def test_packet_traverse_matches_brute_force(tile):
-    cfg, arrays, meta = _teapot()
-    S, L = tile
-    n = S * L
-    o, d = _rays_toward_mesh(arrays, n, seed=tile[1])
-    nodes, tris = pk.build_mesh_tables(arrays, meta)
-
-    rays = [jnp.asarray(x.reshape(S, L)) for x in
+def _as_rays(o, d):
+    return [jnp.asarray(np.ascontiguousarray(x)) for x in
             (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2])]
-    t, nx, ny, nz, cr, cg, cb = _traverse_interpret(
-        meta, cfg, nodes, tris, rays, tile,
-        uniform_color=meta.tri_uniform_color)
-    t = t.reshape(-1)
+
+
+@pytest.mark.parametrize("block", [64, 256])
+def test_packet_traverse_matches_brute_force(block):
+    cfg, arrays, meta = _teapot()
+    n = 512
+    o, d = _rays_toward_mesh(arrays, n, seed=block)
+    tables = pk.scene_tables(arrays, meta)
+    t, slot, nx, ny, nz, cr, cg, cb = _traverse_interpret(
+        meta, cfg, tables, _as_rays(o, d), block)
 
     bt, bi = _brute_force(arrays, cfg.epsilon, o, d)
     hit = bi >= 0
 
     # same hit/miss classification and same closest t
     assert np.array_equal(t < pk._BIG, hit)
+    assert np.array_equal(slot >= 0, hit)
     np.testing.assert_allclose(t[hit], bt[hit], rtol=2e-4, atol=2e-5)
     assert hit.sum() > n // 4          # the aimed rays actually hit
 
     # interpolated smooth normals are unit-ish and colors match the pool
-    nrm = np.stack([nx.reshape(-1), ny.reshape(-1),
-                    nz.reshape(-1)], 1)[hit]
+    nrm = np.stack([nx, ny, nz], 1)[hit]
     ln = np.linalg.norm(nrm, axis=1)
     assert (np.abs(ln - 1.0) < 0.1).mean() > 0.99
-    cols = np.stack([cr.reshape(-1), cg.reshape(-1),
-                     cb.reshape(-1)], 1)[hit]
+    cols = np.stack([cr, cg, cb], 1)[hit]
     pool_cols = np.asarray(arrays.tri_color, np.float32)[bi[hit]]
     np.testing.assert_allclose(cols, pool_cols, atol=1e-6)
 
 
 def test_packet_traverse_slot_tracking():
-    """return_slot reports the winning global triangle slot: validated
-    against the brute-force oracle's argmin index (ties — rays whose
-    two closest triangles are ULP-level equal — are accepted when the
-    reported slot's own Möller–Trumbore t equals the oracle's best t).
-    The tri-grad tape (pallas_grad tri_grads) keys on this value."""
+    """The walk reports the winning global triangle slot (the payload
+    fetch keys on it): validated against the brute-force oracle's argmin
+    index (ties — rays whose two closest triangles are ULP-level equal —
+    are accepted when the reported slot's own Möller–Trumbore t equals
+    the oracle's best t). Per-slot colors are read (uniform elision
+    off)."""
     cfg, arrays, meta = _teapot()
-    S, L = 8, 512
-    o, d = _rays_toward_mesh(arrays, S * L, seed=5)
-    nodes, tris = pk.build_mesh_tables(arrays, meta)
-    rays = [jnp.asarray(x.reshape(S, L)) for x in
-            (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2])]
-    # per-slot colors read (uniform elision off), slot tracked — the
-    # exact configuration the differentiable kernel runs
-    t, nx, ny, nz, cr, cg, cb, sl = _traverse_interpret(
-        meta, cfg, nodes, tris, rays, (S, L),
-        uniform_color=None, return_slot=True)
-    t = t.reshape(-1)
-    sl = sl.reshape(-1).astype(np.int64)
+    meta = dataclasses.replace(meta, tri_uniform_color=None)
+    o, d = _rays_toward_mesh(arrays, 512, seed=5)
+    t, sl, *_ = _traverse_interpret(
+        meta, cfg, pk.scene_tables(arrays, meta), _as_rays(o, d))
+    sl = sl.astype(np.int64)
 
     bt, bi = _brute_force(arrays, cfg.epsilon, o, d)
     hit = bi >= 0
@@ -191,11 +182,10 @@ def test_uniform_color_detection():
     assert meta.tri_uniform_color is not None
     cfg = RenderConfig(width=16, height=12, samples=1, samples_per_pass=1)
     sc = get_scene("default", cfg)
-    _, m2 = sc.pack()
-    # whichever way `default` packs, the field must be consistent with
-    # the REAL (non-padding) pool colors; padding slots are degenerate
-    # and never hit, so they don't constrain uniformity
-    a2 = sc.pack()[0]
+    a2, m2 = sc.pack()
+    # the field must be consistent with the REAL (non-padding) pool
+    # colors; padding slots are degenerate and never hit, so they don't
+    # constrain uniformity
     ng = np.cross(np.asarray(a2.tri_e1), np.asarray(a2.tri_e2))
     cols = np.asarray(a2.tri_color)[(ng * ng).sum(1) > 0]
     uniform = bool((cols == cols[0]).all())
@@ -205,134 +195,16 @@ def test_uniform_color_detection():
 
 
 def test_octant_copy_parity():
-    """Every octant node order must produce the same hits as copy 0
-    (front-to-back reordering changes visit order, not the result)."""
+    """Walking from the blocks' octant node copies must produce the same
+    hits as the original order (front-to-back reordering changes visit
+    order, not the result), whatever octant the block majority picks."""
     cfg, arrays, meta = _teapot()
     if not meta.octant_orders:
         pytest.skip("no octant copies packed")
-    S, L = 8, 128
-    o, d = _rays_toward_mesh(arrays, S * L, seed=9)
-    nodes, tris = pk.build_mesh_tables(arrays, meta)
-    rays = [jnp.asarray(x.reshape(S, L)) for x in
-            (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2])]
-
-    leaf_rows = meta.leaf_size // pk._TRI_SLOTS_PER_ROW
-    (_, root, end), = meta.group_bvh
-
-    def run(base):
-        def kernel(node_ref, tri_ref, ox, oy, oz, dx, dy, dz, t_out):
-            bt0 = jnp.full((S, L), pk._BIG, jnp.float32)
-            act = jnp.ones((S, L), jnp.bool_)
-            t, *_ = pk._packet_traverse(
-                node_ref, tri_ref, leaf_rows, cfg.epsilon, cfg.t_max,
-                root, end, ox[...], oy[...], oz[...],
-                dx[...], dy[...], dz[...], act, bt0,
-                oct_base=None if base is None else jnp.int32(base),
-                uniform_color=meta.tri_uniform_color)
-            t_out[...] = t
-
-        return np.asarray(pl.pallas_call(
-            kernel,
-            in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 8,
-            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((S, L), jnp.float32),
-            interpret=True,
-        )(jnp.asarray(nodes), jnp.asarray(tris), *rays))
-
-    t0 = run(None)
-    for oc in range(8):
-        toc = run((1 + oc) * meta.n_nodes)
-        np.testing.assert_allclose(toc, t0, rtol=1e-6, atol=1e-7)
-
-
-@pytest.mark.parametrize("scene,leaf", [
-    ("teapot", None),    # default K=32
-    ("gopher", None),    # default K=16 (8 payload leaves per lane-block)
-    ("teapot", 64),      # K > 32: multiple MXU row-tiles per leaf
-    ("teapot", 128),     # K = 128: one payload leaf per lane-block
-])
-def test_mxu_traverse_matches_brute_force(scene, leaf):
-    """The MXU leaf machine (_packet_traverse_mxu + build_mxu_tri_table)
-    must return the same closest hits as the brute-force oracle — same
-    dual-basis test expressed as matmuls. Covers the default leaf sizes
-    and the large-leaf configurations the hardware sweep A/Bs (the
-    lane-packed table supports any K <= 128)."""
-    cfg = RenderConfig(width=16, height=12, samples=1, samples_per_pass=1)
-    sc = get_scene(scene, cfg)
-    if leaf is None:
-        arrays, meta = sc.pack()
-    else:
-        from pathtracer_tpu.scene.pack import pack_scene
-
-        arrays, meta = pack_scene(sc.objects, leaf_size=leaf)
-    S, L = 8, 256
-    n = S * L
-    o, d = _rays_toward_mesh(arrays, n, seed=5)
-    nodes, _ = pk.build_mesh_tables(arrays, meta)
-    mxu = pk.build_mxu_tri_table(arrays, meta)
-    (_, root, end), = meta.group_bvh
-    K, ns = meta.leaf_size, meta.n_tri_slots
-
-    def kernel(node_ref, tri_ref, ox, oy, oz, dx, dy, dz,
-               t_out, nx_out, ny_out, nz_out, cr_out, cg_out, cb_out):
-        bt0 = jnp.full((S, L), pk._BIG, jnp.float32)
-        act = jnp.ones((S, L), jnp.bool_)
-        t, nx, ny, nz, cr, cg, cb = pk._packet_traverse_mxu(
-            node_ref, tri_ref, K, ns, cfg.epsilon, cfg.t_max,
-            root, end, ox[...], oy[...], oz[...],
-            dx[...], dy[...], dz[...], act, bt0)
-        t_out[...] = t
-        nx_out[...] = nx
-        ny_out[...] = ny
-        nz_out[...] = nz
-        cr_out[...] = cr
-        cg_out[...] = cg
-        cb_out[...] = cb
-
-    rays = [jnp.asarray(x.reshape(S, L)) for x in
-            (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2])]
-    f32 = jax.ShapeDtypeStruct((S, L), jnp.float32)
-    outs = pl.pallas_call(
-        kernel,
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 8,
-        out_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 7,
-        out_shape=[f32] * 7,
-        interpret=True,
-    )(jnp.asarray(nodes), jnp.asarray(mxu), *rays)
-    t, nx, ny, nz, cr, cg, cb = [np.asarray(x) for x in outs]
-    t = t.reshape(-1)
-
-    bt, bi = _brute_force(arrays, cfg.epsilon, o, d)
-    hit = bi >= 0
-    assert np.array_equal(t < pk._BIG, hit)
-    np.testing.assert_allclose(t[hit], bt[hit], rtol=2e-4, atol=2e-5)
-    assert hit.sum() > n // 4
-
-    nrm = np.stack([nx.reshape(-1), ny.reshape(-1),
-                    nz.reshape(-1)], 1)[hit]
-    ln = np.linalg.norm(nrm, axis=1)
-    assert (np.abs(ln - 1.0) < 0.1).mean() > 0.99
-    cols = np.stack([cr.reshape(-1), cg.reshape(-1),
-                     cb.reshape(-1)], 1)[hit]
-    pool_cols = np.asarray(arrays.tri_color, np.float32)[bi[hit]]
-    # exact-tie rays average payload; allow the rare mismatch
-    match = np.isclose(cols, pool_cols, atol=1e-5).all(axis=1)
-    assert match.mean() > 0.999
-
-
-def test_mxu_table_numpy_jnp_parity():
-    """The numpy (host, multi-process path) and jnp (on-device) MXU
-    table builders must agree — same guarantee the classic tables give
-    (build_mesh_tables vs scene_tables_jnp)."""
-    cfg = RenderConfig(width=16, height=12, samples=1, samples_per_pass=1)
-    sc = get_scene("gopher", cfg)
-    arrays, meta = sc.pack()
-    t_np = pk.build_mxu_tri_table(arrays, meta)
-    _, _, t_jnp = pk.scene_tables_jnp(arrays, meta, traversal="mxu")
-    assert t_np.shape == t_jnp.shape
-    # not bit-exact: XLA contracts the cross products / divisions with
-    # FMAs where numpy rounds each op (0.05% of elements differ by
-    # <=1.3e-4). Every process in a run uses ONE builder, so this only
-    # needs closeness, not equality.
-    np.testing.assert_allclose(np.asarray(t_jnp), t_np,
-                               rtol=2e-2, atol=2e-4)
+    o, d = _rays_toward_mesh(arrays, 256, seed=9)
+    tables = pk.scene_tables(arrays, meta)
+    plain = dataclasses.replace(meta, octant_orders=False)
+    t0 = _traverse_interpret(plain, cfg, tables, _as_rays(o, d))[0]
+    for block in (32, 256):
+        t = _traverse_interpret(meta, cfg, tables, _as_rays(o, d), block)[0]
+        np.testing.assert_allclose(t, t0, rtol=1e-6, atol=1e-7)

@@ -1,819 +1,357 @@
-"""Pallas megakernel: interpret-mode correctness on the CPU mesh.
+"""Pallas megakernel: correctness in interpret mode on the CPU, and on the
+card.
 
 The megakernel (render/pallas_kernel.py) uses a different RNG than the
-wavefront integrator (on-core PRNG vs threefry), so parity is statistical:
-same mean image at matched spp, not bitwise (same policy the reference
-forces on us for the OpenCL kernel's wall-clock-seeded sin-hash,
-tracer.cl:314).
+wavefront integrator (a counter hash vs threefry), so parity is
+statistical: same mean image at matched spp, not bitwise (same policy the
+reference forces on us for the OpenCL kernel's wall-clock-seeded
+sin-hash, tracer.cl:314). Each render-level test runs twice: in
+interpret mode here, and (`gpu` case) compiled for the card, where it
+runs through chip_smoke.py.
 """
-import os
+import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pathtracer_tpu.config import RenderConfig
-from pathtracer_tpu.render.pallas_kernel import render_pallas, supports_scene
-from pathtracer_tpu.scenes import get_scene
+from pathtracer.config import RenderConfig
+from pathtracer.render import pallas_kernel as pk
+from pathtracer.render.pallas_kernel import render_pallas, supports_scene
+from pathtracer.scenes import get_scene
 
-# The kernel's on-core PRNG (pltpu.prng_*) has no CPU lowering, so the
-# full-fidelity render-parity tests only run when a real TPU is visible
-# (the CI conftest pins JAX to CPU; run `python -m pytest
-# tests/test_pallas.py` without it on a TPU host). Since round 2b,
-# interpret=True swaps in a software hash PRNG
-# (pallas_kernel._uniform), so the *_cpu_interpret tests below cover
-# the same estimators on the CPU in every run.
-_tpu = pytest.mark.skipif(
-    jax.devices()[0].platform != "tpu", reason="needs a TPU device"
-)
+MODES = ["interpret", pytest.param("gpu", marks=pytest.mark.gpu)]
 
 
-@pytest.fixture(scope="module")
-def small_cfg():
-    return RenderConfig(width=32, height=24, samples=64, samples_per_pass=64)
+def _size(mode, small, full):
+    """Interpret mode runs the kernel on the CPU: keep it tiny there."""
+    return small if mode == "interpret" else full
 
 
-def test_supports_scene_classification(small_cfg):
+def _render(mode, arrays, meta, camera, cfg, **kw):
+    return render_pallas(arrays, meta, camera, cfg,
+                         interpret=(mode == "interpret"), **kw)
+
+
+def test_supports_scene_classification():
+    cfg = RenderConfig(width=32, height=24, samples=1)
     checks = {
         "reference": True,          # planes + spheres
         "transparency": True,       # + glass/mirror roulette
-        "default": True,            # triangle group (packet traversal)
+        "default": True,            # triangle group (BVH walk)
         "teapot": True,             # BVH mesh
         "textures": True,           # procedural textures: computed in-kernel
         "cubemap": True,            # procedural cube-cross: computed
         "envmap": True,             # procedural sky sphere: computed
     }
     for name, expect in checks.items():
-        sc = get_scene(name, small_cfg)
+        sc = get_scene(name, cfg)
         _, meta = sc.pack()
         assert supports_scene(meta) == expect, name
 
 
-def test_supports_scene_file_texture_falls_back(small_cfg, monkeypatch):
-    """With mip staging DISABLED (PT_TEX_MIP=0, the round-4 behavior),
-    a scene sampling a LARGE file image (no proctex descriptor, too
-    big to VMEM-stage: the one-hot MXU fetch costs O(texture area) per
-    texel, pack._stage_file_textures) must stay on the wavefront path.
-    With mip staging on (the round-5 default) the same image stages at
-    a mip and the scene IS supported —
-    test_megakernel_mip_staged_large_texture."""
-    monkeypatch.setenv("PT_TEX_MIP", "0")
-    sc = get_scene("textures", small_cfg)
-    # strip the descriptor from one texture, as a loaded PNG would be;
-    # at 512x512 it exceeds the PT_TEX_STAGE_AREA default (256x256)
+def test_supports_scene_file_texture_falls_back():
+    """A scene sampling a file-backed image (no proctex descriptor, as a
+    loaded PNG) has no texels the kernel can compute: it must stay on
+    the wavefront path, which gathers the full-resolution texel pool."""
+    cfg = RenderConfig(width=32, height=24, samples=1)
+    sc = get_scene("textures", cfg)
     sc.textures[0] = np.asarray(sc.textures[0])
-    assert sc.textures[0].shape[0] * sc.textures[0].shape[1] > 256 * 256
     _, meta = sc.pack()
     assert not supports_scene(meta)
-    # round-5 default: the same scene mip-stages and rides the kernel
-    monkeypatch.delenv("PT_TEX_MIP")
-    sc2 = get_scene("textures", small_cfg)
-    sc2.textures[0] = np.asarray(sc2.textures[0])
-    _, meta2 = sc2.pack()
-    assert supports_scene(meta2)
+    assert any(d is None for (_s, d, *_r) in meta.obj_tex)
 
 
-@_tpu
-def test_megakernel_matches_wavefront_mean(small_cfg):
-    from pathtracer_tpu.render.integrator import render
+def _reference_parity(mode, w, h, spp, mean_tol, pixel_tol):
+    from pathtracer.render.integrator import render
 
-    sc = get_scene("reference", small_cfg)
+    cfg = RenderConfig(width=w, height=h, samples=spp, samples_per_pass=spp)
+    sc = get_scene("reference", cfg)
     arrays, meta = sc.pack()
-    img_p = render_pallas(arrays, meta, sc.camera, small_cfg,
-                          tile=(8, 128))
-    img_w = render(arrays, meta, sc.camera, small_cfg)
+    img_p = _render(mode, arrays, meta, sc.camera, cfg)
+    img_w = render(arrays, meta, sc.camera, cfg)
 
     assert np.isfinite(img_p).all()
     assert img_p.min() >= 0.0
     # independent-RNG estimates of the same integral: means agree
-    assert abs(img_p.mean() - img_w.mean()) < 0.03
-    # and so do per-pixel values up to MC noise at 64 spp
-    assert np.abs(img_p - img_w).mean() < 0.15
+    assert abs(img_p.mean() - img_w.mean()) < mean_tol
+    # and so do per-pixel values up to MC noise
+    assert np.abs(img_p - img_w).mean() < pixel_tol
 
 
-@_tpu
-def test_megakernel_textured_matches_wavefront_mean():
-    """Textured megakernel ON HARDWARE (computed texels + polynomial
-    sphere UV + normal maps) vs the wavefront integrator: independent
-    estimators of the same integral."""
-    from pathtracer_tpu.render.integrator import render
+@pytest.mark.gpu
+def test_megakernel_matches_wavefront_mean():
+    _reference_parity("gpu", 64, 48, 64, 0.03, 0.15)
 
-    cfg = RenderConfig(width=64, height=48, samples=64,
-                       samples_per_pass=64)
+
+def test_megakernel_matches_wavefront_mean_cpu_interpret():
+    """The CPU twin of the card test above, in interpret mode: runs in
+    every suite invocation."""
+    _reference_parity("interpret", 32, 24, 32, 0.04, 0.2)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_megakernel_textured_matches_wavefront_mean(mode):
+    """Textured megakernel (computed texels + polynomial sphere UV +
+    normal maps) vs the wavefront integrator: independent estimators of
+    the same integral."""
+    from pathtracer.render.integrator import render
+
+    w, h, spp = _size(mode, (16, 12, 8), (64, 48, 64))
+    cfg = RenderConfig(width=w, height=h, samples=spp, samples_per_pass=spp)
     for scene in ("textures", "envmap"):
         sc = get_scene(scene, cfg)
         arrays, meta = sc.pack()
         assert supports_scene(meta), scene
-        img_p = render_pallas(arrays, meta, sc.camera, cfg)
+        img_p = _render(mode, arrays, meta, sc.camera, cfg)
         img_w = render(arrays, meta, sc.camera, cfg)
         assert np.isfinite(img_p).all() and img_p.min() >= 0.0, scene
-        assert abs(img_p.mean() - img_w.mean()) < 0.04, scene
-        assert np.abs(img_p - img_w).mean() < 0.15, scene
+        assert abs(img_p.mean() - img_w.mean()) < _size(mode, 0.06, 0.04)
+        assert np.abs(img_p - img_w).mean() < _size(mode, 0.3, 0.15)
 
 
-@_tpu
-def test_megakernel_mesh_matches_wavefront_mean(small_cfg):
-    """BVH packet-traversal path vs the CPU wavefront oracle (the
-    wavefront BVH on real TPU hardware is watchdog-limited, so the oracle
-    runs on the CPU backend)."""
-    import jax
+@pytest.mark.parametrize("mode", MODES)
+def test_megakernel_mesh_matches_wavefront_mean(mode):
+    """BVH mesh path (packet walk) vs the wavefront integrator."""
+    from pathtracer.render.integrator import render
 
-    from pathtracer_tpu.render.integrator import render
-
-    sc = get_scene("teapot", small_cfg)
+    w, h, spp = _size(mode, (16, 12, 16), (64, 48, 64))
+    cfg = RenderConfig(width=w, height=h, samples=spp, samples_per_pass=spp)
+    sc = get_scene("teapot", cfg)
     arrays, meta = sc.pack()
-    img_p = render_pallas(arrays, meta, sc.camera, small_cfg)
-    with jax.default_device(jax.devices("cpu")[0]):
-        arrays2, meta2 = sc.pack()
-        img_w = render(arrays2, meta2, sc.camera, small_cfg)
+    img_p = _render(mode, arrays, meta, sc.camera, cfg)
+    img_w = render(arrays, meta, sc.camera, cfg)
     assert np.isfinite(img_p).all()
-    assert abs(img_p.mean() - img_w.mean()) < 0.03
-    assert np.abs(img_p - img_w).mean() < 0.15
+    assert abs(img_p.mean() - img_w.mean()) < _size(mode, 0.06, 0.03)
+    assert np.abs(img_p - img_w).mean() < _size(mode, 0.3, 0.15)
 
 
-@_tpu
-def test_wavefront_pallas_intersect_matches_cpu_oracle(small_cfg):
-    """The wavefront integrator's pallas intersect kernel (used for mesh
-    scenes on real TPUs) must agree with the pure-XLA walk: identical RNG
-    streams, so the images match to f32 rounding."""
-    import jax
-
-    from pathtracer_tpu.render.integrator import render
-
-    sc = get_scene("teapot", small_cfg)
+@pytest.mark.parametrize("mode", MODES)
+def test_megakernel_deterministic_per_seed(mode):
+    w, h, spp = _size(mode, (16, 8, 4), (64, 48, 16))
+    cfg = RenderConfig(width=w, height=h, samples=spp, samples_per_pass=spp)
+    sc = get_scene("reference", cfg)
     arrays, meta = sc.pack()
-    img_t = render(arrays, meta, sc.camera, small_cfg)  # pallas intersect
-    with jax.default_device(jax.devices("cpu")[0]):
-        a2, m2 = sc.pack()
-        img_c = render(a2, m2, sc.camera, small_cfg)    # XLA walk
-    assert np.isfinite(img_t).all()
-    assert np.abs(img_t - img_c).mean() < 5e-3
-
-
-@_tpu
-def test_megakernel_deterministic_per_seed(small_cfg):
-    sc = get_scene("reference", small_cfg)
-    arrays, meta = sc.pack()
-    a = render_pallas(arrays, meta, sc.camera, small_cfg, seed=5,
-                      tile=(8, 128))
-    b = render_pallas(arrays, meta, sc.camera, small_cfg, seed=5,
-                      tile=(8, 128))
-    c = render_pallas(arrays, meta, sc.camera, small_cfg, seed=6,
-                      tile=(8, 128))
+    a = _render(mode, arrays, meta, sc.camera, cfg, seed=5)
+    b = _render(mode, arrays, meta, sc.camera, cfg, seed=5)
+    c = _render(mode, arrays, meta, sc.camera, cfg, seed=6)
     assert np.array_equal(a, b)
     assert not np.array_equal(a, c)
 
 
-@_tpu
-def test_dof_sample_base_threads_into_sunflower(small_cfg):
+def _launch(mode, cfg, sc, arrays, meta, spp, base, block=64, seed=7):
+    """One trace_tiles launch of `spp` samples starting at global sample
+    `base`; returns the [H, W, 3] radiance SUM."""
+    W, H = cfg.width, cfg.height
+    obj, nodes, tris = pk.scene_tables(arrays, meta)
+    pix = jnp.asarray(pk.pixel_slots(W, H, block))
+    r, g, b = pk.trace_tiles(
+        jnp.asarray([seed, base], jnp.int32),
+        jnp.asarray(pk.build_camera_vec(sc.camera)), obj, nodes, tris, pix,
+        meta=meta, cfg=cfg, spp=spp, total_samples=cfg.samples,
+        block=block, interpret=(mode == "interpret"))
+    img = np.stack([np.asarray(c)[:W * H] for c in (r, g, b)], -1)
+    return img.reshape(H, W, 3)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_dof_sample_base_threads_into_sunflower(mode):
     """Segmented/sharded DoF launches must continue the sunflower lens
     spiral at their global sample offset: with aperture != 0, the same
     seed with a different sample base must sample different lens points
     (regression: every segment used to re-sample indices 0..spp-1)."""
-    import jax.numpy as jnp
-
-    from pathtracer_tpu.render import pallas_kernel as pk
-
-    cfg = small_cfg.replace(aperture=0.1, focal_length=1.6, samples=8)
+    w, h = _size(mode, (16, 8), (64, 48))
+    cfg = RenderConfig(width=w, height=h, samples=8, aperture=0.1,
+                       focal_length=1.6)
     sc = get_scene("reference", cfg)
     arrays, meta = sc.pack()
-    S, L = 8, 128
-    W, H = cfg.width, cfg.height
-    n_pix = W * H
-    pad = (-n_pix) % (S * L)
-    ids = np.arange(n_pix + pad)
-    px = jnp.asarray((ids % W).astype(np.int32).reshape(-1, L))
-    py = jnp.asarray(
-        np.minimum(ids // W, H - 1).astype(np.int32).reshape(-1, L))
-    cam_vec = jnp.asarray(pk.build_camera_vec(sc.camera))
-    obj, nodes, tris = pk.scene_tables_jnp(arrays, meta)
-
-    def run(base):
-        r, g, b = pk.trace_tiles(
-            jnp.asarray([7, base], jnp.int32), cam_vec, obj, nodes, tris,
-            px, py, meta=meta, cfg=cfg, spp=4, total_samples=cfg.samples,
-            tile=(S, L))
-        return np.asarray(r)
-
-    r0 = run(0)
-    r0b = run(0)
-    r4 = run(4)
+    r0 = _launch(mode, cfg, sc, arrays, meta, 4, 0)
+    r0b = _launch(mode, cfg, sc, arrays, meta, 4, 0)
+    r4 = _launch(mode, cfg, sc, arrays, meta, 4, 4)
     np.testing.assert_array_equal(r0, r0b)   # deterministic
     assert not np.array_equal(r0, r4)        # base reaches the lens spiral
 
 
-@_tpu
-def test_dof_segmented_driver_matches_single_launch_mean(small_cfg):
-    """A driver-style segmented DoF render (2 x 32 spp with sample bases
-    0/32) estimates the same image as one 64-spp launch."""
-    from pathtracer_tpu.driver import render_driver
-
-    cfg = small_cfg.replace(aperture=0.08, focal_length=1.6,
-                            backend="pallas")
+@pytest.mark.parametrize("mode", MODES)
+def test_dof_segmented_driver_matches_single_launch_mean(mode):
+    """A segmented DoF render (2 launches with sample bases 0 and spp/2)
+    is the same render as one launch: the kernel keys its RNG and the
+    sunflower on the GLOBAL sample index. On the card the segments come
+    from the driver (PT_SEG_SPP)."""
+    w, h, spp = _size(mode, (16, 8, 8), (64, 48, 64))
+    cfg = RenderConfig(width=w, height=h, samples=spp, samples_per_pass=8,
+                       aperture=0.08, focal_length=1.6, backend="pallas")
     sc = get_scene("reference", cfg)
     arrays, meta = sc.pack()
-    img_single = render_pallas(arrays, meta, sc.camera, cfg)
+    single = _launch(mode, cfg, sc, arrays, meta, spp, 0, seed=cfg.seed)
+    if mode == "interpret":
+        half = spp // 2
+        seg = (_launch(mode, cfg, sc, arrays, meta, half, 0, seed=cfg.seed)
+               + _launch(mode, cfg, sc, arrays, meta, half, half,
+                         seed=cfg.seed))
+        np.testing.assert_allclose(seg, single, rtol=1e-5, atol=1e-5)
+        return
     import os
-    os.environ["PT_SEG_SPP"] = "32"
+
+    from pathtracer.driver import render_driver
+
+    os.environ["PT_SEG_SPP"] = str(spp // 2)
     try:
-        cfg_seg = cfg.replace(samples_per_pass=32)
-        img_seg, _ = render_driver(arrays, meta, sc.camera, cfg_seg)
+        img_seg, stats = render_driver(arrays, meta, sc.camera, cfg)
     finally:
         del os.environ["PT_SEG_SPP"]
-    assert abs(img_single.mean() - img_seg.mean()) < 0.03
-    assert np.abs(img_single - img_seg).mean() < 0.15
+    assert stats.backend == "pallas" and stats.segments == 2
+    np.testing.assert_allclose(img_seg, single / spp, rtol=1e-5, atol=1e-5)
 
 
-def test_tile_pixel_layout_roundtrip():
-    """Block and linear tilings must cover every pixel exactly once
-    (padding slots marked -1) and untile back to image order."""
-    from pathtracer_tpu.render.pallas_kernel import (tile_pixel_layout,
-                                                     untile_image)
-
-    for order in ("block", "linear", "subblock", "rowblock"):
-        for (W, H, S, L) in [(33, 25, 8, 128), (64, 48, 8, 512),
-                             (1280, 960, 8, 512), (17, 3, 8, 128)]:
-            px, py, pid = tile_pixel_layout(W, H, S, L, order=order)
-            assert px.shape == py.shape and px.shape[0] % S == 0
-            assert pid.shape[0] == px.size
-            valid = pid >= 0
-            # each pixel exactly once
-            assert np.array_equal(np.sort(pid[valid]), np.arange(W * H))
-            # px/py consistent with pid on valid slots
-            np.testing.assert_array_equal(
-                px.ravel()[valid], pid[valid] % W)
-            np.testing.assert_array_equal(
-                py.ravel()[valid], pid[valid] // W)
-            # padding slots carry in-range coordinates
-            assert px.min() >= 0 and px.max() < W
-            assert py.min() >= 0 and py.max() < H
-            # roundtrip
-            flat = np.zeros((pid.shape[0], 3), np.float32)
-            flat[valid] = np.stack(
-                [pid[valid], pid[valid] * 2, pid[valid] * 3],
-                axis=-1).astype(np.float32)
-            img = untile_image(flat, pid, W, H)
-            exp = np.arange(W * H, dtype=np.float32)
-            np.testing.assert_array_equal(img[:, 0], exp)
-            np.testing.assert_array_equal(img[:, 2], exp * 3)
-
-
-def test_tile_pixel_layout_shard_granule():
-    from pathtracer_tpu.render.pallas_kernel import tile_pixel_layout
-
-    px, py, pid = tile_pixel_layout(40, 30, 8, 128, shard_granule=4,
-                                    order="block")
-    assert px.shape[0] % (8 * 4) == 0
-
-
-def test_tile_pixel_layout_spp_pack():
-    """Sample-in-rows packing: each pixel appears exactly `pack` times,
-    the replica row groups within a tile are identical, and untile_image
-    SUMS the replicas (each slot carries a partial sample sum)."""
-    from pathtracer_tpu.render.pallas_kernel import (tile_pixel_layout,
-                                                     untile_image)
-
-    for (W, H, S, L, pack) in [(64, 48, 8, 128, 8), (33, 25, 8, 128, 4),
-                               (1280, 960, 8, 512, 8), (40, 30, 8, 128, 2)]:
-        px, py, pid = tile_pixel_layout(W, H, S, L, order="block",
-                                        spp_pack=pack)
-        rows = px.shape[0]
-        assert rows % S == 0
-        n_tiles = rows // S
-        Ss = S // pack
-        # replica groups within each tile are identical pixel blocks
-        t = px.reshape(n_tiles, pack, Ss, L)
-        for r in range(1, pack):
-            np.testing.assert_array_equal(t[:, r], t[:, 0])
-        # every pixel appears exactly pack times among valid slots
-        valid = pid >= 0
-        counts = np.bincount(pid[valid], minlength=W * H)
-        assert counts.min() == pack and counts.max() == pack
-        # untile sums the partial per-slot values
-        flat = np.ones((pid.shape[0], 1), np.float32)
-        img = untile_image(flat, pid, W, H)
-        np.testing.assert_array_equal(img[:, 0], np.full(W * H, pack))
-        # sharded variant: whole tiles per shard
-        px4, _, _ = tile_pixel_layout(W, H, S, L, order="block",
-                                      spp_pack=pack, shard_granule=4)
-        assert px4.shape[0] % (S * 4) == 0
-
-
-def test_tile_pixel_layout_chunk_pack():
-    """Sample-in-lane-chunks packing (pack_axis='chunk'): replica lane
-    groups within a tile are identical pixel blocks, every pixel appears
-    exactly `pack` times, untile_image sums the replicas, and the
-    replica width is 128-lane aligned (the gated walk's chunk size)."""
-    from pathtracer_tpu.render.pallas_kernel import (clamp_pack,
-                                                     tile_pixel_layout,
-                                                     untile_image)
-
-    for (W, H, S, L, pack) in [(64, 48, 8, 256, 2), (33, 25, 8, 512, 4),
-                               (1280, 960, 8, 512, 4)]:
-        assert clamp_pack(pack, S, L, "chunk") == pack
-        px, py, pid = tile_pixel_layout(W, H, S, L, order="block",
-                                        spp_pack=pack, pack_axis="chunk")
-        rows = px.shape[0]
-        assert rows % S == 0 and px.shape[1] == L
-        cw = L // pack
-        assert cw % 128 == 0
-        # replica lane groups are identical pixel blocks
-        t = px.reshape(rows, pack, cw)
-        for c in range(1, pack):
-            np.testing.assert_array_equal(t[:, c], t[:, 0])
-        valid = pid >= 0
-        counts = np.bincount(pid[valid], minlength=W * H)
-        assert counts.min() == pack and counts.max() == pack
-        flat = np.ones((pid.shape[0], 1), np.float32)
-        img = untile_image(flat, pid, W, H)
-        np.testing.assert_array_equal(img[:, 0], np.full(W * H, pack))
-        # sharded variant: whole tiles per shard
-        px4, _, _ = tile_pixel_layout(W, H, S, L, order="block",
-                                      spp_pack=pack, pack_axis="chunk",
-                                      shard_granule=4)
-        assert px4.shape[0] % (S * 4) == 0
-    # capacity clamping: pack that would leave sub-128-lane replicas
-    assert clamp_pack(8, 8, 512, "chunk") == 4
-    assert clamp_pack(8, 8, 1024, "chunk") == 8
-    assert clamp_pack(8, 8, 128, "chunk") == 1
-
-
-def test_megakernel_chunk_pack_same_estimator(small_cfg, monkeypatch):
-    """Chunk-packed launches (pack_axis='chunk') are the same estimator
-    as row-packed ones — image means agree to MC noise (coherence off:
-    replica-shared draws make the IMAGE-MEAN estimate far noisier at
-    tiny sizes, see _coherent_sampling) — and the scratch-gated walk
-    (PT_SUBPACKET=2) is bit-identical to the monolithic walk on the
-    same chunk-packed layout (jax.clear_caches() between env flips:
-    the knobs are read at trace time)."""
-    import jax.numpy as jnp
-    from pathtracer_tpu.render import pallas_kernel as pk
-    from pathtracer_tpu.scenes import get_scene
-
-    W, H, SPP = 64, 48, 16
-    cfg = small_cfg.replace(width=W, height=H, samples=SPP,
-                            samples_per_pass=SPP)
-    sc = get_scene("default", cfg)
-    arrays, meta = sc.pack()
-    cam_vec = jnp.asarray(pk.build_camera_vec(sc.camera))
-    obj, nodes, tris = pk.scene_tables_jnp(arrays, meta)
-    S, L = 8, 256
-
-    def render(pack, axis):
-        jax.clear_caches()
-        xs, ys, pid = pk.tile_pixel_layout(W, H, S, L, order="block",
-                                           spp_pack=pack, pack_axis=axis)
-        r, g, b = pk.trace_tiles(
-            jnp.asarray([7, 0], jnp.int32), cam_vec, obj, nodes, tris,
-            jnp.asarray(xs), jnp.asarray(ys), meta=meta, cfg=cfg,
-            spp=SPP, total_samples=SPP, tile=(S, L), spp_pack=pack,
-            pack_axis=axis, interpret=True)
-        flat = np.stack([np.asarray(r).ravel(), np.asarray(g).ravel(),
-                         np.asarray(b).ravel()], -1)
-        return pk.untile_image(flat, pid, W, H) / SPP
-
-    monkeypatch.setenv("PT_COHERENT", "0")
-    img_row = render(2, "row")
-    img_chunk = render(2, "chunk")
-    assert abs(img_chunk.mean() - img_row.mean()) < 0.02
-    assert np.abs(img_chunk - img_row).mean() < 0.25   # per-pixel MC noise
-
-    # coherent chunk draws: gated walk bit-equal to the monolithic walk
-    monkeypatch.setenv("PT_COHERENT", "1")
-    img_mono = render(2, "chunk")
-    monkeypatch.setenv("PT_SUBPACKET", "2")
-    img_gated = render(2, "chunk")
-    np.testing.assert_array_equal(img_gated, img_mono)
-    # per-chunk independent walks (PT_SUBPACKET=3): same closest hits
-    # (only exact-t ties could differ between octant visit orders)
-    monkeypatch.setenv("PT_SUBPACKET", "3")
-    img_pc = render(2, "chunk")
-    np.testing.assert_allclose(img_pc, img_mono, atol=1e-6)
-    monkeypatch.delenv("PT_SUBPACKET")
-    # coherent chunk mode stays the same estimator (loose: image-mean
-    # variance is inflated by the replica-wide draw sharing)
-    assert abs(img_mono.mean() - img_row.mean()) < 0.06
-
-
-def test_megakernel_spp_pack_same_estimator(small_cfg):
-    """Packed launches (spp_pack=8: 8 samples of one compact block per
-    tile) are the same estimator as unpacked — image means agree to MC
-    noise, and the per-pixel sample budget is exactly spp (exercised by
-    the accounting assert in test_tile_pixel_layout_spp_pack; here the
-    two renders of the 'default' scene must converge together)."""
-    import jax.numpy as jnp
-    from pathtracer_tpu.render import pallas_kernel as pk
-    from pathtracer_tpu.scenes import get_scene
-
-    W, H, SPP = 64, 48, 16
-    cfg = small_cfg.replace(width=W, height=H, samples=SPP,
-                            samples_per_pass=SPP)
-    sc = get_scene("default", cfg)
-    arrays, meta = sc.pack()
-    cam_vec = jnp.asarray(pk.build_camera_vec(sc.camera))
-    obj, nodes, tris = pk.scene_tables_jnp(arrays, meta)
-    S, L = 8, 128
-    imgs = {}
-    for pack in (1, 8):
-        xs, ys, pid = pk.tile_pixel_layout(W, H, S, L, order="block",
-                                           spp_pack=pack)
-        r, g, b = pk.trace_tiles(
-            jnp.asarray([7, 0], jnp.int32), cam_vec, obj, nodes, tris,
-            jnp.asarray(xs), jnp.asarray(ys), meta=meta, cfg=cfg,
-            spp=SPP, total_samples=SPP, tile=(S, L), spp_pack=pack,
-            interpret=True)
-        flat = np.stack([np.asarray(r).ravel(), np.asarray(g).ravel(),
-                         np.asarray(b).ravel()], -1)
-        imgs[pack] = pk.untile_image(flat, pid, W, H) / SPP
-    assert abs(imgs[8].mean() - imgs[1].mean()) < 0.02
-    assert np.abs(imgs[8] - imgs[1]).mean() < 0.25  # per-pixel MC noise
-
-
-@_tpu
-def test_render_sharded_pallas_mesh_of_one(small_cfg):
-    """Distributed megakernel on a 1x1 mesh is the same estimator as the
-    single-device megakernel (parallel/render_dist.py:305). Seeds differ
-    by design (per-shard stream derivation), so parity is statistical —
-    the same policy test_megakernel_matches_wavefront_mean uses."""
+@pytest.mark.parametrize("mode", MODES)
+def test_render_sharded_pallas_mesh_of_one(mode):
+    """The driver's sharded megakernel segments (parallel/render_dist.
+    make_driver_segments) on a mesh reproduce the one-device launch: the
+    RNG is keyed on the global pixel and sample, so only the psum's
+    summation order differs. Interpret mode shards over 2x2 virtual CPU
+    devices; on the card a 1x1 mesh."""
     from jax.sharding import Mesh
-    from pathtracer_tpu.parallel.render_dist import render_sharded_pallas
 
-    sc = get_scene("default", small_cfg)  # triangle group -> packet BVH
+    from pathtracer.parallel.render_dist import make_driver_segments
+
+    w, h, spp = _size(mode, (16, 8, 4), (64, 48, 16))
+    shape = (2, 2) if mode == "interpret" else (1, 1)
+    devs = jax.devices()[:shape[0] * shape[1]]
+    mesh = Mesh(np.array(devs).reshape(shape), ("pixels", "spp"))
+    cfg = RenderConfig(width=w, height=h, samples=spp,
+                       samples_per_pass=spp // 2)
+    sc = get_scene("default", cfg)  # triangle group -> packet walk
     arrays, meta = sc.pack()
-    assert supports_scene(meta)
-    mesh = Mesh(
-        np.array(jax.devices()[:1]).reshape(1, 1), ("pixels", "spp"))
-    img_d = render_sharded_pallas(arrays, meta, sc.camera, small_cfg, mesh)
-    img_s = render_pallas(arrays, meta, sc.camera, small_cfg)
-
-    assert img_d.shape == img_s.shape == (24, 32, 3)
+    segment, finalize, padded = make_driver_segments(
+        arrays, meta, sc.camera, cfg, mesh, True, None,
+        interpret=(mode == "interpret"))
+    acc = segment(0, 2, None)
+    flat = np.stack([np.asarray(c) for c in acc], -1)
+    assert flat.shape == (padded, 3)
+    img_d = finalize(flat).reshape(h, w, 3)
+    img_s = _launch(mode, cfg, sc, arrays, meta, spp, 0, seed=cfg.seed)
     assert np.isfinite(img_d).all() and img_d.min() >= 0.0
-    assert abs(img_d.mean() - img_s.mean()) < 0.03
-    d = np.abs(img_d - img_s).mean()
-    assert d < 0.05, f"per-pixel MAD {d} too large for matched 64 spp"
+    np.testing.assert_allclose(img_d, img_s, rtol=1e-5, atol=1e-5)
 
 
-def test_megakernel_matches_wavefront_mean_cpu_interpret():
-    """Megakernel (interpret mode + software PRNG) vs the wavefront
-    integrator on the CPU: independent estimators of the same integral.
-    The CPU twin of the TPU-gated parity test above — runs in every
-    suite invocation."""
-    from pathtracer_tpu.render.integrator import render
+def test_image_independent_of_block_size():
+    """The RNG is keyed on the global pixel, not on the program id: the
+    image does not change with the block size."""
+    cfg = RenderConfig(width=16, height=8, samples=4)
+    sc = get_scene("default", cfg)
+    arrays, meta = sc.pack()
+    a = _launch("interpret", cfg, sc, arrays, meta, 4, 0, block=32)
+    b = _launch("interpret", cfg, sc, arrays, meta, 4, 0, block=128)
+    np.testing.assert_array_equal(a, b)
 
-    cfg = RenderConfig(width=32, height=24, samples=32,
-                       samples_per_pass=32)
+
+def test_pixel_slots_padding():
+    for (W, H, block, granule) in [(16, 8, 64, 1), (33, 25, 128, 1),
+                                   (1280, 960, 128, 2), (17, 3, 64, 4)]:
+        pix = pk.pixel_slots(W, H, block, shard_granule=granule)
+        assert pix.dtype == np.int32
+        assert pix.shape[0] % (block * granule) == 0
+        assert pix.shape[0] - W * H < block * granule
+        np.testing.assert_array_equal(pix[:W * H], np.arange(W * H))
+        assert (pix[W * H:] == W * H - 1).all()
+
+
+def test_trace_tiles_rejects_bad_block():
+    cfg = RenderConfig(width=16, height=8, samples=1)
     sc = get_scene("reference", cfg)
     arrays, meta = sc.pack()
-    img_p = render_pallas(arrays, meta, sc.camera, cfg, tile=(8, 128),
-                          interpret=True)
-    img_w = render(arrays, meta, sc.camera, cfg)
-
-    assert np.isfinite(img_p).all()
-    assert img_p.min() >= 0.0
-    assert abs(img_p.mean() - img_w.mean()) < 0.04
-    assert np.abs(img_p - img_w).mean() < 0.2
-
-
-def test_render_sharded_pallas_cpu_mesh(small_cfg):
-    """Distributed megakernel on a REAL multi-device (virtual CPU) mesh
-    in interpret mode: the 2x2 ('pixels','spp') shard_map must be the
-    same estimator as the single-device megakernel. This is the
-    CPU-mesh coverage for render_sharded_pallas (the TPU-gated variant
-    above only exercises a 1x1 mesh)."""
-    from jax.sharding import Mesh
-    from pathtracer_tpu.parallel.render_dist import render_sharded_pallas
-
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 virtual devices")
-    cfg = RenderConfig(width=32, height=24, samples=32,
-                       samples_per_pass=32)
-    sc = get_scene("default", cfg)  # triangle group -> packet BVH
-    arrays, meta = sc.pack()
-    assert supports_scene(meta)
-    mesh = Mesh(
-        np.array(jax.devices()[:4]).reshape(2, 2), ("pixels", "spp"))
-    img_d = render_sharded_pallas(arrays, meta, sc.camera, cfg, mesh,
-                                  interpret=True)
-    img_s = render_pallas(arrays, meta, sc.camera, cfg, interpret=True)
-
-    assert img_d.shape == img_s.shape == (24, 32, 3)
-    assert np.isfinite(img_d).all() and img_d.min() >= 0.0
-    assert abs(img_d.mean() - img_s.mean()) < 0.04
-    d = np.abs(img_d - img_s).mean()
-    assert d < 0.2, f"per-pixel MAD {d} too large for matched 32 spp"
+    obj, nodes, tris = pk.scene_tables(arrays, meta)
+    cam = jnp.asarray(pk.build_camera_vec(sc.camera))
+    for block, n in ((48, 96), (64, 96)):
+        with pytest.raises(ValueError, match="power of two"):
+            pk.trace_tiles(jnp.asarray([0, 0], jnp.int32), cam, obj, nodes,
+                           tris, jnp.zeros((n,), jnp.int32), meta=meta,
+                           cfg=cfg, block=block, interpret=True)
 
 
-def test_subblock_chunks_are_compact():
-    """Each 128-lane chunk of a subblock-ordered tile must cover a
-    compact sub-rectangle (the point of the order: per-chunk leaf
-    gating acts on spatially small unions)."""
-    from pathtracer_tpu.render.pallas_kernel import tile_pixel_layout
+def test_kernel_rng_uniforms():
+    """The counter hash gives [0, 1) uniforms, distinct streams per
+    pixel, sample, bounce and draw id."""
+    pix = jnp.arange(4096, dtype=jnp.int32)
+    pkey = pk._pixel_key(jnp.int32(3), pix)
+    s0 = pk._sample_key(pkey, jnp.int32(0))
+    u = np.asarray(pk._uniform(s0, 2, jnp.int32(0)))
+    assert u.min() >= 0.0 and u.max() < 1.0
+    assert abs(u.mean() - 0.5) < 0.02 and abs(u.var() - 1 / 12) < 0.01
+    others = [pk._uniform(s0, 3, jnp.int32(0)),
+              pk._uniform(s0, 2, jnp.int32(1)),
+              pk._uniform(pk._sample_key(pkey, jnp.int32(1)), 2,
+                          jnp.int32(0)),
+              pk._uniform(pk._sample_key(pk._pixel_key(jnp.int32(4), pix),
+                                         jnp.int32(0)), 2, jnp.int32(0))]
+    for v in others:
+        v = np.asarray(v)
+        assert abs(np.corrcoef(u, v)[0, 1]) < 0.05
+        assert (u != v).mean() > 0.99
 
-    S, L = 8, 512
-    px, py, pid = tile_pixel_layout(128, 128, S, L, order="subblock")
-    px = px.reshape(-1, S, L)
-    py = py.reshape(-1, S, L)
-    for j in range(L // 128):
-        cx = px[0, :, j * 128:(j + 1) * 128]
-        cy = py[0, :, j * 128:(j + 1) * 128]
-        assert cx.max() - cx.min() == 31
-        assert cy.max() - cy.min() == 31
 
-
-def test_megakernel_mxu_matches_classic_cpu_interpret(monkeypatch):
-    """Full-kernel traversal-machine parity: the same mesh render (same
-    seed, same software PRNG stream) through the classic and the MXU
-    leaf machines must produce near-identical images — the machines may
-    differ only in exact-tie payload handling (first vs averaged), so
-    the per-pixel MAD bound is tight. Complements the isolated-walk
-    oracle tests in test_packet_traverse.py by exercising the env
-    switch, the table builders, and the in-kernel dispatch together."""
-    cfg = RenderConfig(width=24, height=16, samples=2, samples_per_pass=2)
+def test_kernel_has_no_dot():
+    """The kernel body is elementwise work and gathers: no matrix
+    product (which would run in TF32 on the card unless given a
+    precision)."""
+    cfg = RenderConfig(width=16, height=8, samples=1)
     sc = get_scene("teapot", cfg)
     arrays, meta = sc.pack()
-    assert supports_scene(meta)
-
-    monkeypatch.delenv("PT_TRAVERSAL", raising=False)
-    img_c = render_pallas(arrays, meta, sc.camera, cfg, tile=(8, 128),
-                          interpret=True)
-    monkeypatch.setenv("PT_TRAVERSAL", "mxu")
-    img_m = render_pallas(arrays, meta, sc.camera, cfg, tile=(8, 128),
-                          interpret=True)
-
-    assert np.isfinite(img_m).all() and img_m.min() >= 0.0
-    d = np.abs(img_m - img_c).mean()
-    assert d < 1e-4, f"traversal machines diverge: MAD {d}"
-
-
-def test_rowblock_rows_are_compact():
-    """Each sublane row of a rowblock-ordered tile must cover a compact
-    sub-rectangle (the point of the order: the MXU leaf machine gates
-    per sublane row, so row-compactness shrinks the unions its gating
-    acts on)."""
-    from pathtracer_tpu.render.pallas_kernel import tile_pixel_layout
-
-    S, L = 8, 512
-    px, py, pid = tile_pixel_layout(128, 128, S, L, order="rowblock")
-    px = px.reshape(-1, S, L)
-    py = py.reshape(-1, S, L)
-    for s in range(S):
-        cx, cy = px[0, s], py[0, s]
-        assert (cx.max() - cx.min() + 1) * (cy.max() - cy.min() + 1) == L
-
-
-def test_render_sharded_pallas_mxu_cpu_mesh(monkeypatch):
-    """Distributed megakernel under PT_TRAVERSAL=mxu on a virtual CPU
-    mesh (interpret mode): the sharded MXU render must match the
-    single-device classic render — pre-validates flipping the default
-    traversal for mesh scenes without losing the distributed path."""
-    from jax.sharding import Mesh
-    from pathtracer_tpu.parallel.render_dist import render_sharded_pallas
-
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 virtual devices")
-    cfg = RenderConfig(width=24, height=16, samples=4, samples_per_pass=4)
-    sc = get_scene("default", cfg)  # triangle group -> packet BVH
-    arrays, meta = sc.pack()
-    assert supports_scene(meta)
-
-    mesh = Mesh(np.array(jax.devices()[:2]).reshape(2, 1),
-                ("pixels", "spp"))
-    monkeypatch.delenv("PT_TRAVERSAL", raising=False)
-    img_c = render_sharded_pallas(arrays, meta, sc.camera, cfg, mesh,
-                                  interpret=True)
-    monkeypatch.setenv("PT_TRAVERSAL", "mxu")
-    img_m = render_sharded_pallas(arrays, meta, sc.camera, cfg, mesh,
-                                  interpret=True)
-
-    assert img_m.shape == img_c.shape == (16, 24, 3)
-    assert np.isfinite(img_m).all() and img_m.min() >= 0.0
-    # identical sharding and PRNG streams: the two traversal machines
-    # may differ only in exact-tie payload handling
-    d = np.abs(img_m - img_c).mean()
-    assert d < 1e-4, f"sharded-mxu vs sharded-classic MAD {d}"
-
-
-def test_megakernel_coherent_same_estimator(monkeypatch):
-    """Coherent path tracing (PT_COHERENT=1, the default: row-shared
-    roulette/hemisphere/light uniforms, pallas_kernel._uniform_row) vs
-    fully per-lane sampling: both are unbiased estimators of the same
-    integral, so mean images at matched spp must agree up to MC noise.
-    Coherence only changes CROSS-pixel correlation within a sublane
-    row; per-pixel marginals are untouched. Interpret mode, mesh scene
-    (the mode exists to collapse packet-BVH leaf unions)."""
-    cfg = RenderConfig(width=32, height=24, samples=64,
-                       samples_per_pass=64)
-    sc = get_scene("default", cfg)  # triangle group -> packet BVH
-    arrays, meta = sc.pack()
-    assert supports_scene(meta)
-
-    # PT_COHERENT is read at kernel-trace time, so the jit cache must
-    # be dropped between the two builds (same static args otherwise)
-    monkeypatch.setenv("PT_COHERENT", "1")
-    jax.clear_caches()
-    img_c = render_pallas(arrays, meta, sc.camera, cfg, interpret=True)
-    monkeypatch.setenv("PT_COHERENT", "0")
-    jax.clear_caches()
-    img_i = render_pallas(arrays, meta, sc.camera, cfg, interpret=True)
-    jax.clear_caches()
-
-    assert np.isfinite(img_c).all() and img_c.min() >= 0.0
-    # different draw streams, same integral: statistical agreement
-    assert abs(img_c.mean() - img_i.mean()) < 0.04
-    assert np.abs(img_c - img_i).mean() < 0.2
-    # and coherence must actually change the draws (guard against the
-    # knob silently not wiring through)
-    assert not np.allclose(img_c, img_i)
-
-
-def _checker_texture_lists(h=128, w=128, sw=256):
-    """Checker textures for EXACT proc-vs-staged parity: piecewise
-    constant, so the jnp program and the host pool agree on every texel
-    (no value-noise rounding ties); matches the `textures` scene's
-    index layout (0..2 color, 3 nm unused; sphere 0/1)."""
-    from pathtracer_tpu.render import proctex
-
-    mk = lambda ph, pw, c1, c2: proctex.make(
-        ("checker", (8, c1, c2)), ph, pw)
-    tex = [mk(h, w, (0.9, 0.9, 0.9), (0.2, 0.2, 0.2)),
-           mk(h, w, (0.8, 0.5, 0.3), (0.3, 0.5, 0.8)),
-           mk(h, w, (0.7, 0.7, 0.2), (0.2, 0.7, 0.7)),
-           mk(h, w, (0.5, 0.5, 1.0), (0.5, 1.0, 0.5))]
-    sph = [mk(h, sw, (0.9, 0.6, 0.3), (0.1, 0.3, 0.6)),
-           mk(h, sw, (0.8, 0.7, 0.5), (0.4, 0.3, 0.2))]
-    return tex, sph
-
-
-def _strip_normal_maps(sc):
-    """Disable normal maps: a <=1/255 nm texel difference tilts a
-    normal, which redirects a bounce ray onto a different object —
-    chaotic amplification that exact-parity tests must exclude
-    (color texels only scale radiance linearly)."""
-    for o in sc.objects:
-        o.material.textured_nm = False
-
-
-def _small_texture_lists(h=128, w=128, sw=256):
-    """Small proc textures matching the `textures` scene's index layout
-    (0 squares, 1 cobblestone, 2 floorboards, 3 squares_nm; sphere 0
-    planet, 1 jupiter)."""
-    from pathtracer_tpu.render import proctex
-
-    tex = [proctex.make(("squares", (7,)), h, w),
-           proctex.make(("cobblestone", (11, 13)), h, w),
-           proctex.make(("floorboards", (17,)), h, w),
-           proctex.make(("squares_nm", ()), h, w)]
-    sph = [proctex.make(("planet", (23,)), h, sw),
-           proctex.make(("jupiter", (31,)), h, sw)]
-    return tex, sph
-
-
-def test_megakernel_staged_file_textures_match_proc():
-    """VMEM-staged FILE-BACKED textures (one-hot MXU fetch,
-    pallas_kernel._sample_staged) vs the same texel data as procedural
-    programs (computed in-kernel): identical PRNG streams and identical
-    rgb8-quantized texels, so the two renders must agree to float
-    round-off — the bilinear blend merely associates differently.
-    Closes the last reference-capability row (image2d_array_t sampling
-    in the hot loop, tracer.cl:829,1077-1093)."""
-    from pathtracer_tpu.render.pallas_kernel import staged_lanes
-
-    cfg = RenderConfig(width=32, height=24, samples=8, samples_per_pass=8)
-    tex, sph = _checker_texture_lists()
-
-    sc_p = get_scene("textures", cfg)
-    _strip_normal_maps(sc_p)
-    sc_p.textures = list(tex)
-    sc_p.sphere_textures = list(sph)
-    arr_p, meta_p = sc_p.pack()
-    assert staged_lanes(meta_p) == 0 and supports_scene(meta_p)
-
-    sc_f = get_scene("textures", cfg)
-    _strip_normal_maps(sc_f)
-    sc_f.textures = [np.asarray(t).copy() for t in tex]
-    sc_f.sphere_textures = [np.asarray(t).copy() for t in sph]
-    arr_f, meta_f = sc_f.pack()
-    assert staged_lanes(meta_f) > 0 and supports_scene(meta_f)
-
-    # pin the tile: staged scenes default to (8, 512) while proc scenes
-    # use (64, 256), which would change the per-tile PRNG streams
-    img_p = render_pallas(arr_p, meta_p, sc_p.camera, cfg, interpret=True,
-                          tile=(8, 256))
-    img_f = render_pallas(arr_f, meta_f, sc_f.camera, cfg, interpret=True,
-                          tile=(8, 256))
-    d = np.abs(img_p - img_f)
-    assert d.max() < 2e-2 and d.mean() < 1e-3, (d.max(), d.mean())
-
-
-def test_megakernel_staged_multiwindow_texture():
-    """A staged texture taller than 128 rows spans multiple atlas lane
-    windows (the two-matmul path in _sample_staged); parity vs the same
-    data as a procedural program."""
-    from pathtracer_tpu.render import proctex
-    from pathtracer_tpu.render.pallas_kernel import staged_lanes
-
-    cfg = RenderConfig(width=32, height=24, samples=8, samples_per_pass=8)
-    tex, sph = _checker_texture_lists()
-    # floor texture (index 1) becomes 256x96: spans two lane windows
-    tex[1] = proctex.make(
-        ("checker", (8, (0.8, 0.5, 0.3), (0.3, 0.5, 0.8))), 256, 96)
-
-    sc_p = get_scene("textures", cfg)
-    _strip_normal_maps(sc_p)
-    sc_p.textures = list(tex)
-    sc_p.sphere_textures = list(sph)
-    arr_p, meta_p = sc_p.pack()
-
-    sc_f = get_scene("textures", cfg)
-    _strip_normal_maps(sc_f)
-    sc_f.textures = [np.asarray(t).copy() for t in tex]
-    sc_f.sphere_textures = [np.asarray(t).copy() for t in sph]
-    arr_f, meta_f = sc_f.pack()
-    assert staged_lanes(meta_f) > 0
-
-    img_p = render_pallas(arr_p, meta_p, sc_p.camera, cfg, interpret=True,
-                          tile=(8, 256))
-    img_f = render_pallas(arr_f, meta_f, sc_f.camera, cfg, interpret=True,
-                          tile=(8, 256))
-    d = np.abs(img_p - img_f)
-    assert d.max() < 2e-2 and d.mean() < 1e-3, (d.max(), d.mean())
+    obj, nodes, tris = pk.scene_tables(arrays, meta)
+    jaxpr = jax.make_jaxpr(lambda *a: pk.trace_tiles(
+        *a, meta=meta, cfg=cfg, spp=1, total_samples=1, interpret=True))(
+        jnp.asarray([0, 0], jnp.int32),
+        jnp.asarray(pk.build_camera_vec(sc.camera)), obj, nodes, tris,
+        jnp.asarray(pk.pixel_slots(16, 8, pk.DEFAULT_BLOCK)))
+    text = str(jaxpr)
+    assert "pallas_call" in text
+    assert "dot_general" not in text
 
 
 def test_staged_wavefront_uses_pool_gathers():
-    """A staged scene on the WAVEFRONT path must gather from the texel
-    pool (staged descs are not proctex programs): the render must still
-    be a consistent estimator of the staged megakernel's integral.
-    Exercises staged NORMAL MAPS too (both paths read identical rgb8
-    nm texels, so the estimators match statistically)."""
-    from pathtracer_tpu.render.integrator import render
+    """A scene with file-backed textures renders on the WAVEFRONT path,
+    which gathers texels from the full-resolution pool: with the same
+    texel data as procedural programs, the megakernel's computed texels
+    and the wavefront's gathered ones are estimators of one integral.
+    Exercises file-backed NORMAL MAPS too."""
+    from pathtracer.render import proctex
+    from pathtracer.render.integrator import render
 
-    cfg = RenderConfig(width=32, height=24, samples=32,
-                       samples_per_pass=32)
-    tex, sph = _small_texture_lists()
-    sc = get_scene("textures", cfg)
-    sc.textures = [np.asarray(t).copy() for t in tex]
-    sc.sphere_textures = [np.asarray(t).copy() for t in sph]
-    arrays, meta = sc.pack()
-    img_w = render(arrays, meta, sc.camera, cfg)
-    img_p = render_pallas(arrays, meta, sc.camera, cfg, interpret=True)
-    assert np.isfinite(img_w).all()
-    assert abs(img_p.mean() - img_w.mean()) < 0.04
-    assert np.abs(img_p - img_w).mean() < 0.2
-
-
-def test_megakernel_mip_staged_large_texture(monkeypatch):
-    """Round 5: file textures OVER the staging area cap are box-filtered
-    down a mip chain (pack._mip2) and the mip is staged, so
-    arbitrary-size file images ride the megakernel (the reference
-    samples any image2d_array_t in its hot loop, tracer.cl:829).
-    Checkers are resolution-independent away from square edges, so a
-    512x512 checker staged at its 128x128 mip must closely match the
-    full-res computed-texel render (identical PRNG streams)."""
-    from pathtracer_tpu.render import proctex
-    from pathtracer_tpu.render.pallas_kernel import staged_lanes
-
-    cfg = RenderConfig(width=32, height=24, samples=8, samples_per_pass=8)
-    tex, sph = _checker_texture_lists()
-    big = proctex.make(
-        ("checker", (8, (0.9, 0.9, 0.9), (0.2, 0.2, 0.2))), 512, 512)
-    tex[0] = big
-
-    sc_p = get_scene("textures", cfg)
-    _strip_normal_maps(sc_p)
-    sc_p.textures = list(tex)
-    sc_p.sphere_textures = list(sph)
-    arr_p, meta_p = sc_p.pack()
-    assert staged_lanes(meta_p) == 0 and supports_scene(meta_p)
-
+    cfg = RenderConfig(width=16, height=12, samples=16,
+                       samples_per_pass=16)
+    tex = [proctex.make(("squares", (7,)), 64, 64),
+           proctex.make(("cobblestone", (11, 13)), 64, 64),
+           proctex.make(("floorboards", (17,)), 64, 64),
+           proctex.make(("squares_nm", ()), 64, 64)]
+    sph = [proctex.make(("planet", (23,)), 64, 128),
+           proctex.make(("jupiter", (31,)), 64, 128)]
     sc_f = get_scene("textures", cfg)
-    _strip_normal_maps(sc_f)
     sc_f.textures = [np.asarray(t).copy() for t in tex]
     sc_f.sphere_textures = [np.asarray(t).copy() for t in sph]
     arr_f, meta_f = sc_f.pack()
-    # the 512x512 file image must be staged at its 128x128 mip
-    assert staged_lanes(meta_f) > 0 and supports_scene(meta_f)
-    descs = [d for (_s, d, *_r) in meta_f.obj_tex
-             if isinstance(d, tuple) and d and d[0] == "__staged__"]
-    assert any(d[2] == 128 and d[3] == 128 for d in descs), descs
+    assert not supports_scene(meta_f)
+    img_w = render(arr_f, meta_f, sc_f.camera, cfg)
 
-    img_p = render_pallas(arr_p, meta_p, sc_p.camera, cfg, interpret=True,
-                          tile=(8, 256))
-    img_f = render_pallas(arr_f, meta_f, sc_f.camera, cfg, interpret=True,
-                          tile=(8, 256))
-    d = np.abs(img_p - img_f)
-    # not exact (mip boundary texels differ) but close: color texels
-    # scale radiance linearly, no chaotic amplification
-    assert d.mean() < 0.03, (d.max(), d.mean())
+    sc_p = get_scene("textures", cfg)
+    sc_p.textures = list(tex)
+    sc_p.sphere_textures = list(sph)
+    arr_p, meta_p = sc_p.pack()
+    img_p = render_pallas(arr_p, meta_p, sc_p.camera, cfg, interpret=True)
+    assert np.isfinite(img_w).all()
+    assert abs(img_p.mean() - img_w.mean()) < 0.06
+    assert np.abs(img_p - img_w).mean() < 0.3
 
-    # PT_TEX_MIP=0 restores round-4 behavior: over-cap image unstaged ->
-    # whole scene routes to the wavefront path
-    monkeypatch.setenv("PT_TEX_MIP", "0")
-    sc_0 = get_scene("textures", cfg)
-    _strip_normal_maps(sc_0)
-    sc_0.textures = [np.asarray(t).copy() for t in tex]
-    sc_0.sphere_textures = [np.asarray(t).copy() for t in sph]
-    _arr_0, meta_0 = sc_0.pack()
-    # the over-cap image keeps desc None (unstaged) -> megakernel
-    # can't ride; small textures may still stage
-    assert any(d is None for (_s, d, *_r) in meta_0.obj_tex)
-    assert not supports_scene(meta_0)
+
+def test_octant_orders_do_not_change_the_image():
+    """The packet walk starts in its majority octant's front-to-back
+    node copy; visiting order changes, the closest hits do not."""
+    cfg = RenderConfig(width=16, height=8, samples=2)
+    sc = get_scene("teapot", cfg)
+    arrays, meta = sc.pack()
+    assert meta.octant_orders
+    a = _launch("interpret", cfg, sc, arrays, meta, 2, 0)
+    flat = dataclasses.replace(meta, octant_orders=False)
+    b = _launch("interpret", cfg, sc, arrays, flat, 2, 0)
+    np.testing.assert_allclose(a, b, atol=1e-5)

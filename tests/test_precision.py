@@ -1,13 +1,13 @@
-"""f32 vs f64 golden cross-check (SURVEY.md §7 'Hard parts': f32 on TPU
+"""f32 vs f64 golden cross-check (SURVEY.md §7 'Hard parts': f32 on the device
 with f64 golden verification on CPU — the reference computes in double
 throughout its kernel)."""
 import jax
 import numpy as np
 import pytest
 
-from pathtracer_tpu.config import RenderConfig
-from pathtracer_tpu.render.integrator import render
-from pathtracer_tpu.scenes import get_scene
+from pathtracer.config import RenderConfig
+from pathtracer.render.integrator import render
+from pathtracer.scenes import get_scene
 
 
 def test_f32_matches_f64_golden():
@@ -37,38 +37,55 @@ def test_f32_matches_f64_golden():
         jax.config.update("jax_enable_x64", False)
 
 
-@pytest.mark.slow
-@pytest.mark.skipif(jax.devices()[0].platform != "tpu",
-                    reason="needs a TPU device")
-def test_f64_render_on_tpu_matches_cpu_golden(tmp_path):
-    """Device-side f64 rendering ON THE TPU (the reference computes in
-    double throughout its kernel, tracer.cl; README.md:50-59 documents
-    its fp64 device quirks). XLA:TPU emulates f64 — slow but exact
-    enough that the same threefry streams + deterministic math give a
-    render identical (at the .raw format's f32 precision) to the CPU
-    f64 golden. Subprocess-isolated because jax_enable_x64 is a
-    process-global flag."""
+@pytest.mark.gpu
+def test_f64_render_on_gpu_matches_cpu_golden(tmp_path):
+    """Device-side f64 rendering on the card's f64 units (the reference
+    computes in double throughout its kernel, tracer.cl) vs the CPU f64
+    golden. Same threefry streams and the same estimator; the math may
+    differ only where the GPU's libdevice transcendentals round
+    differently in the last bits. The CPU golden renders in a child
+    process pinned to the CPU, which never opens the card."""
     import os
     import subprocess
     import sys
 
-    from pathtracer_tpu.io.raw import read_raw
+    import jax.numpy as jnp
 
-    def render_to(raw_path, platform_env):
-        env = dict(os.environ, **platform_env)
-        cmd = [sys.executable, "-m", "pathtracer_tpu",
-               "--scene", "reference", "--dtype", "float64",
-               "--width", "48", "--height", "32",
-               "--samples", "4", "--samples-per-pass", "4",
-               "--output", str(raw_path) + ".png",
-               "--raw-output", str(raw_path)]
-        subprocess.run(cmd, check=True, env=env, timeout=540,
-                       cwd=os.path.dirname(os.path.dirname(__file__)))
-        return np.asarray(read_raw(str(raw_path)), np.float64)
+    from pathtracer.io.raw import read_raw
 
-    tpu = render_to(tmp_path / "tpu.raw", {})
-    cpu = render_to(tmp_path / "cpu.raw", {"JAX_PLATFORMS": "cpu"})
-    assert np.isfinite(tpu).all()
-    assert np.array_equal(tpu, cpu), (
-        f"f64 TPU render != CPU f64 golden (max diff "
-        f"{np.abs(tpu - cpu).max()})")
+    raw = tmp_path / "cpu.raw"
+    env = dict(os.environ, JAX_PLATFORMS="cpu", CUDA_VISIBLE_DEVICES="")
+    env.pop("PT_TESTS_GPU", None)
+    subprocess.run(
+        [sys.executable, "-m", "pathtracer", "--scene", "reference",
+         "--dtype", "float64", "--width", "48", "--height", "32",
+         "--samples", "4", "--samples-per-pass", "4",
+         "--output", str(raw) + ".png", "--raw-output", str(raw)],
+        check=True, env=env, timeout=540,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    cpu = np.asarray(read_raw(str(raw)), np.float64)
+
+    from pathtracer.driver import render_driver
+
+    # the same driver path the CLI takes (an f64 render runs on the
+    # wavefront), so both renders draw identical random streams
+    jax.config.update("jax_enable_x64", True)
+    try:
+        cfg = RenderConfig(width=48, height=32, samples=4,
+                           samples_per_pass=4, dtype="float64")
+        sc = get_scene("reference", cfg)
+        arrays, meta = sc.pack(dtype=jnp.float64)
+        img, stats = render_driver(arrays, meta, sc.camera, cfg)
+        assert stats.backend == "wavefront"
+        gpu = np.asarray(img, np.float64)
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    diff = np.abs(gpu - cpu)
+    print(f"f64 GPU vs CPU golden: max |diff| {diff.max()}, "
+          f"mean {diff.mean()}, pixels > 1e-4: {(diff > 1e-4).mean()}")
+    assert np.isfinite(gpu).all()
+    # last-bit transcendental differences can flip a rare roulette
+    # decision, so a few pixels may differ by a path's worth; the rest
+    # agree to f32 output precision
+    assert (diff > 1e-4).mean() < 0.01
+    assert diff.mean() < 1e-3

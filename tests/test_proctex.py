@@ -12,9 +12,9 @@ import pytest
 
 jnp = jax.numpy
 
-from pathtracer_tpu.config import RenderConfig
-from pathtracer_tpu.render import proctex
-from pathtracer_tpu.scenes import get_scene
+from pathtracer.config import RenderConfig
+from pathtracer.render import proctex
+from pathtracer.scenes import get_scene
 
 DESCS = [
     (("checker", (8, (0.9, 0.9, 0.9), (0.2, 0.2, 0.2))), 512, 512),
@@ -64,9 +64,9 @@ def test_pool_matches_program(desc, h, w):
 
 
 def test_atan2_acos_accuracy():
-    """The kernel's polynomial atan2/acos (Mosaic has neither primitive)
-    vs numpy, over all quadrants."""
-    from pathtracer_tpu.render.pallas_kernel import _acos, _atan2
+    """The kernel's polynomial atan2/acos vs numpy, over all
+    quadrants."""
+    from pathtracer.render.pallas_kernel import _acos, _atan2
 
     rng = np.random.default_rng(11)
     y = rng.uniform(-3, 3, 20000).astype(np.float32)
@@ -84,9 +84,9 @@ def test_atan2_acos_accuracy():
 def test_kernel_uv_matches_wavefront_uv():
     """_spherical_uv/_cube_uv (kernel) vs uv.spherical_map/cube_uv
     (wavefront), including the integrator's v flip."""
-    from pathtracer_tpu.render.pallas_kernel import _cube_uv, _spherical_uv
-    from pathtracer_tpu.render.uv import cube_uv, spherical_map
-    from pathtracer_tpu.render.vec3 import Vec3
+    from pathtracer.render.pallas_kernel import _cube_uv, _spherical_uv
+    from pathtracer.render.uv import cube_uv, spherical_map
+    from pathtracer.render.vec3 import Vec3
 
     rng = np.random.default_rng(13)
     p = rng.normal(size=(3, 5000)).astype(np.float32)
@@ -114,8 +114,8 @@ def test_sample_proc_matches_pool_sampler():
     """_sample_proc (computed 4-tap bilinear) vs uv.sample_texture_pool
     (gathered) on the same texture at random UVs incl. out-of-range
     (REPEAT wrap)."""
-    from pathtracer_tpu.render.pallas_kernel import _sample_proc
-    from pathtracer_tpu.render.uv import sample_texture_pool
+    from pathtracer.render.pallas_kernel import _sample_proc
+    from pathtracer.render.uv import sample_texture_pool
 
     desc, h, w = ("squares", (7,)), 512, 512
     img = proctex.eval_image(desc, h, w)
@@ -143,7 +143,7 @@ def test_wavefront_computed_matches_gathered(scene, monkeypatch):
     """The wavefront integrator's computed-texel path (PT_TEX_MODE
     default) vs its pool-gather path: same RNG, same estimator — images
     agree to the texel quantization level."""
-    from pathtracer_tpu.render.integrator import render
+    from pathtracer.render.integrator import render
 
     cfg = RenderConfig(width=32, height=24, samples=8, samples_per_pass=8,
                        seed=3)
@@ -164,11 +164,11 @@ def test_wavefront_computed_matches_gathered(scene, monkeypatch):
     ("cubemap", 16, 0.04),
 ])
 def test_textured_megakernel_matches_wavefront(scene, spp, bound):
-    """End-to-end: the textured megakernel (interpret mode + software
-    PRNG) and the wavefront integrator are independent estimators of the
-    same integral — means agree at matched spp."""
-    from pathtracer_tpu.render.integrator import render
-    from pathtracer_tpu.render.pallas_kernel import (render_pallas,
+    """End-to-end: the textured megakernel (interpret mode) and the
+    wavefront integrator are independent estimators of the same
+    integral — means agree at matched spp."""
+    from pathtracer.render.integrator import render
+    from pathtracer.render.pallas_kernel import (render_pallas,
                                                      supports_scene)
 
     cfg = RenderConfig(width=32, height=24, samples=spp,
@@ -176,8 +176,7 @@ def test_textured_megakernel_matches_wavefront(scene, spp, bound):
     sc = get_scene(scene, cfg)
     arrays, meta = sc.pack()
     assert supports_scene(meta)
-    img_p = render_pallas(arrays, meta, sc.camera, cfg, tile=(8, 128),
-                          interpret=True)
+    img_p = render_pallas(arrays, meta, sc.camera, cfg, interpret=True)
     img_w = render(arrays, meta, sc.camera, cfg)
     assert np.isfinite(img_p).all() and img_p.min() >= 0.0
     assert abs(img_p.mean() - img_w.mean()) < bound

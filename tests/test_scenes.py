@@ -1,10 +1,10 @@
 """Scene registry regression: all 15 reference scenes (cmd/pt/main.go:27-43)
 pack with the expected structure (+ the `textures-file` extension scene,
-which demonstrates VMEM-staged file-backed textures)."""
+which demonstrates file-backed textures on the wavefront path)."""
 import pytest
 
-from pathtracer_tpu.config import RenderConfig
-from pathtracer_tpu.scenes import get_scene, list_scenes
+from pathtracer.config import RenderConfig
+from pathtracer.scenes import get_scene, list_scenes
 
 EXPECTED = {
     # name: (n_objects, has_mesh, textured)

@@ -1,12 +1,12 @@
 """Scene-graph shape semantics (reference: internal/app/shapes/)."""
 import numpy as np
 
-import pathtracer_tpu.geometry as g
-from pathtracer_tpu.scene.shapes import (
+import pathtracer.geometry as g
+from pathtracer.scene.shapes import (
     Cube, Cylinder, Group, Plane, Sphere, Triangle,
     PLANE, SPHERE, CYLINDER, BOX, GROUP,
 )
-from pathtracer_tpu.scene.material import Material
+from pathtracer.scene.material import Material
 
 
 def test_type_codes_match_reference_layout():

@@ -3,7 +3,7 @@
 camera ViewTransform tests)."""
 import numpy as np
 
-import pathtracer_tpu.geometry as g
+import pathtracer.geometry as g
 
 
 def test_translate_point():

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-import pathtracer_tpu.geometry as g
+import pathtracer.geometry as g
 
 
 def test_point_has_w1():

@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pathtracer_tpu.render.uv import cube_uv, sample_texture, spherical_map
-from pathtracer_tpu.render.vec3 import Vec3
+from pathtracer.render.uv import cube_uv, sample_texture, spherical_map
+from pathtracer.render.vec3 import Vec3
 
 
 def _v(p):
@@ -97,8 +97,8 @@ def test_sample_texture_pool_matches_float_sampler(monkeypatch):
     wrap and textures of different native sizes in one pool."""
     import numpy as np
 
-    from pathtracer_tpu.render.uv import sample_texture, sample_texture_pool
-    from pathtracer_tpu.scene.pack import _build_texel_pool
+    from pathtracer.render.uv import sample_texture, sample_texture_pool
+    from pathtracer.scene.pack import _build_texel_pool
 
     # the quad pool is only materialized under PT_TEX_FETCH=quad (it is
     # 4x the pool memory and unread otherwise)

@@ -16,7 +16,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-from pathtracer_tpu.io.raw import read_raw
+from pathtracer.io.raw import read_raw
 
 
 def main():

@@ -1,8 +1,9 @@
 """Render a small PNG of every registered scene into docs/renders/.
 
-The TPU-era counterpart of the reference's images/ archive (its informal
-golden history). Megakernel scenes render at higher spp; the textured
-wavefront scenes use fewer samples to keep the gallery run short.
+The counterpart of the reference's images/ archive (its informal golden
+history). Megakernel scenes render at higher spp; the scenes with
+file-backed textures (wavefront path) use fewer samples to keep the
+gallery run short.
 
     python tools/render_gallery.py [--out docs/renders] [--width 320]
 """
@@ -21,8 +22,7 @@ def main():
     ap.add_argument("--height", type=int, default=240)
     ap.add_argument("--scenes", nargs="*", default=None)
     ap.add_argument("--cpu", action="store_true",
-                    help="force the CPU backend (for mesh+texture scenes "
-                         "whose wavefront path trips the TPU watchdog)")
+                    help="force the CPU backend")
     args = ap.parse_args()
 
     if args.cpu:
@@ -30,10 +30,10 @@ def main():
 
         jax.config.update("jax_platforms", "cpu")
 
-    from pathtracer_tpu.config import RenderConfig
-    from pathtracer_tpu.driver import render_driver
-    from pathtracer_tpu.io.png import write_png
-    from pathtracer_tpu.scenes import get_scene, list_scenes
+    from pathtracer.config import RenderConfig
+    from pathtracer.driver import render_driver
+    from pathtracer.io.png import write_png
+    from pathtracer.scenes import get_scene, list_scenes
 
     os.makedirs(args.out, exist_ok=True)
     names = args.scenes or list_scenes()
@@ -43,8 +43,11 @@ def main():
                            samples=256, samples_per_pass=8)
         sc = get_scene(name, cfg)
         arrays, meta = sc.pack()
-        # textured scenes run on the (slower) wavefront path — fewer spp
-        if meta.textured_types or meta.has_normal_maps:
+        # file-textured scenes run on the (slower) wavefront path — fewer
+        # spp
+        from pathtracer.render.pallas_kernel import supports_scene
+
+        if not supports_scene(meta):
             spp = 32 if meta.has_groups else 64
             cfg = cfg.replace(samples=spp)
         img, stats = render_driver(arrays, meta, sc.camera, cfg)
